@@ -1,0 +1,31 @@
+"""bravais_tpu_torch — the PyTorch/CUDA port of ``bravais_tpu``.
+
+Computes photonic band structures on an NVIDIA GPU: for each k on a
+Brillouin-zone path, the lowest bands of the Bloch Maxwell pencil
+A(k)x = λMx by a complex LOBPCG in the twisted-DFT block basis, then an
+exact float64 host refine of the blocks that carry the bands. The JAX
+package ``bravais_tpu`` is the reference; each module here names its
+counterpart there. This package imports torch, numpy and scipy only.
+
+Subpackages mirror the reference: ``lattices``, ``meshing``, ``spaces``
+(host metadata), ``operators`` (host f64 twins, stencil extraction, the
+twisted-DFT block factory, the spectral solve), ``eigen`` (LOBPCG and
+the Jacobi Rayleigh–Ritz eigensolver with its hand-written CUDA kernel,
+``csrc/jacobi_eigh.cu``), ``bands`` (the warm-started sweep), ``utils``;
+``convert`` carries reference state across.
+"""
+
+__version__ = "0.1.0"
+
+import torch as _torch
+
+# Reduced-precision contractions (TF32 keeps ~3 decimal digits) break the
+# LOBPCG Gram matrices and the whitening; the counterpart of the JAX
+# package's ``jax_default_matmul_precision="highest"``. allow_tf32 also
+# covers the complex64 CGEMMs.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+_torch.set_float32_matmul_precision("highest")
+
+from bravais_tpu_torch.lattices import (  # noqa: F401,E402
+    Lattice, kpath, make_lattice)

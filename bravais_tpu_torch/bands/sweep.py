@@ -1,0 +1,143 @@
+"""Warm-started k-path band sweep.
+
+Port of ``BandSweep.__init__`` (the refine and ``device_tol`` rules),
+``_refine_host`` and ``run_warm`` from ``bravais_tpu/bands/sweep.py``.
+Each k is solved on the device from the previous k's eigenvector block
+(which stays on the device); the tiny (m, B) block support is copied to
+the host, where the exact f64 spectral refine replaces the float32
+device eigenvalues.
+
+The reference overlaps the host refine of k with the device solve of
+k+1; this host-driven loop runs them one after the other. The batched
+``run`` and the chain/segment modes are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+__all__ = ["BandSweep", "SweepResult"]
+
+#: numpy seed of the start block (the reference's default; both packages
+#: draw the same block from it).
+SEED = 0
+
+
+@dataclasses.dataclass
+class SweepResult:
+    """Band table for a sampled k-path.
+
+    eigenvalues : (nk, nev) λ (scalar) or ω² (Maxwell), refined when on
+    iterations  : (nk,) LOBPCG iterations per k-point
+    residuals   : (nk, nev) relative residuals (f64 certificates when
+                  refined)
+    wall_s      : wall time of the whole sweep, device work included
+    refine_s    : the part of ``wall_s`` spent in the host f64 refine
+    """
+
+    eigenvalues: np.ndarray
+    iterations: np.ndarray
+    residuals: np.ndarray
+    wall_s: float
+    refine_s: float = 0.0
+
+
+class RefineError(RuntimeError):
+    """The f64 refine could not confirm a k-point's device solve."""
+
+
+class BandSweep:
+    """Warm-started sweep over Cartesian k-points with a spectral solve.
+
+    Parameters
+    ----------
+    operator   : the ``BlochCurlCurl`` whose space and dtype define the
+                 problem.
+    solve_fn   : ``operator.make_spectral_solve_fn()``.
+    nev        : number of bands; ``block`` the LOBPCG block size
+                 (default nev + max(4, nev // 2)).
+    tol        : target; in complex64 with ``tol < 1e-4`` the f64 refine
+                 is on and the device loop stops at ``device_tol``
+                 (default max(tol, 1e-5)).
+    """
+
+    def __init__(self, operator, solve_fn: Callable, nev: int = 10,
+                 block: Optional[int] = None, tol: float = 1e-6,
+                 maxiter: int = 200, device_tol: Optional[float] = None):
+        self.op = operator
+        self.solve_fn = solve_fn
+        self.nev = nev
+        self.m = block if block is not None else nev + max(4, nev // 2)
+        self.maxiter = maxiter
+        # In f32 the device converges to a loose residual and the f64
+        # host refine recovers the eigenvalue accuracy; ``tol`` below the
+        # f32 floor is redirected into the refine.
+        is_f32 = operator.dtype == torch.complex64
+        self.refine = is_f32 and tol < 1e-4
+        self.tol = max(tol, 1e-5) if (is_f32 and self.refine) else tol
+        # The spectral refine is an exact block eigensolve, so the device
+        # loop only has to identify the support blocks.
+        if device_tol is not None and self.refine:
+            self.tol = device_tol
+
+    def _x0(self) -> torch.Tensor:
+        """Start block from ``np.random.default_rng(SEED)``, drawn as the
+        reference draws it (real and imaginary planes)."""
+        rng = np.random.default_rng(SEED)
+        shp = (self.m,) + tuple(self.op.space.field_shape)
+        t = torch.as_tensor(np.stack([rng.standard_normal(shp),
+                                      rng.standard_normal(shp)]),
+                            dtype=self.op.rdtype, device=self.op.device)
+        return torch.complex(t[0], t[1])
+
+    def _refine_host(self, lam_d: np.ndarray, support: np.ndarray, k):
+        """f64 spectral refine of one k-point, cross-checked against the
+        device eigenvalues. A failed cross-check (or an empty support)
+        raises: the all-dof host Rayleigh–Ritz fallback of the reference
+        is not ported yet, and keeping the device values would hide the
+        fault."""
+        ref = self.solve_fn.refine_np(support, k, self.nev)
+        if ref is None:
+            raise RefineError(f"k={np.asarray(k).tolist()}: empty block "
+                              f"support (collapsed device solve)")
+        lam, res = ref
+        lam_d = lam_d[:self.nev]
+        sc = np.maximum(np.abs(lam_d),
+                        3e-2 * max(float(np.abs(lam_d).max()), 1e-30))
+        if lam.size != lam_d.size or not np.all(
+                np.abs(lam - lam_d) / sc < 3e-2):
+            raise RefineError(
+                f"k={np.asarray(k).tolist()}: refine cross-check failed "
+                f"(device {lam_d.tolist()} vs refined {lam.tolist()})")
+        return lam, res
+
+    def run_warm(self, k_cart: np.ndarray) -> SweepResult:
+        """Sequential sweep, each k warm-started from the previous
+        eigenvector block."""
+        k_cart = np.asarray(k_cart, np.float64)
+        X = self._x0()
+        lams, itss, ress = [], [], []
+        refine_s = 0.0
+        t0 = time.perf_counter()
+        for k in k_cart:
+            r, support = self.solve_fn(X, k, self.nev, self.tol,
+                                       self.maxiter)
+            lam = r.eigenvalues.double().cpu().numpy()
+            res = r.residual_norms.double().cpu().numpy()
+            if self.refine:
+                sup = support.double().cpu().numpy()
+                t1 = time.perf_counter()
+                lam, res = self._refine_host(lam, sup, k)
+                refine_s += time.perf_counter() - t1
+            lams.append(lam)
+            itss.append(r.iterations)
+            ress.append(res)
+            X = r.eigenvectors
+        wall = time.perf_counter() - t0
+        return SweepResult(np.asarray(lams), np.asarray(itss, np.int32),
+                           np.asarray(ress), wall_s=wall, refine_s=refine_s)

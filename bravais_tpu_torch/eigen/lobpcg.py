@@ -1,0 +1,303 @@
+"""Complex LOBPCG eigensolver with fixed block shapes.
+
+Port of ``bravais_tpu/eigen/lobpcg.py``: finds the lowest ``nev``
+eigenpairs of the Hermitian pencil (A, M), A x = λ M x, with a block of
+``m`` vectors, soft locking by masking (shapes never change), Cholesky
+(CholeskyQR2) whitening of the S-basis Gram with a δ-regularized drop of
+near-null directions, a Jacobi Rayleigh–Ritz (``jacobi_eigh``, on CUDA
+the hand-written kernel), and the reference's guards: zero-row reseed,
+rank-aware ``done``, whiteout freeze, degeneration stop, a refresh of
+AX/MX/AP/MP every ``seg = 16`` iterations and the stagnation stop.
+
+The reference's ``lax.while_loop`` is a Python loop here. Every tensor
+keeps its shape across iterations, so a later change can capture one
+segment in a CUDA graph.
+
+Conventions: block arrays are (m, N) with each ROW a vector;
+⟨x, y⟩ = conj(x)·y; Gram G[i, j] = ⟨s_i, Op s_j⟩ = conj(S) @ (Op S).T.
+The operators ``A(X)``, ``M(X)``, ``precond(R)`` and
+``kernel_project(X)`` act on whole blocks (rows, *dof_shape).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from bravais_tpu_torch.eigen.jacobi_eigh import jacobi_eigh
+
+__all__ = ["lobpcg", "LobpcgResult", "PROD_RR_TOL"]
+
+#: Production Rayleigh–Ritz eigh stop (the reference's value, measured
+#: iteration- and accuracy-neutral up to 1e-3 there).
+PROD_RR_TOL = 1e-4
+
+#: Zero rows of a warm start are reseeded from this seed when the caller
+#: passes no generator (the reference's fixed PRNGKey(0x5EED)).
+RESEED = 0x5EED
+
+
+class LobpcgResult(NamedTuple):
+    eigenvalues: torch.Tensor    # (nev,) real, ascending
+    eigenvectors: torch.Tensor   # (m, *dof_shape): first nev rows converged
+    iterations: int
+    residual_norms: torch.Tensor  # (nev,) relative residual norms at exit
+    converged: torch.Tensor      # (nev,) bool
+
+
+def _hermitize(G):
+    return 0.5 * (G + G.mH)
+
+
+def _whiten(G, eps):
+    """C with CᴴGC ≈ I on the well-conditioned subspace of the
+    Hermitian PSD Gram G, dropping directions with eigenvalue below
+    ``eps * max``. Dropped directions become zero columns; returns
+    (C, good_mask)."""
+    w, V = jacobi_eigh(_hermitize(G))
+    wmax = torch.clamp(w.abs().max(), min=torch.finfo(w.dtype).tiny)
+    good = w > eps * wmax
+    inv = torch.where(good, torch.rsqrt(torch.where(good, w, 1.0)), 0.0)
+    return V * inv[None, :].to(V.dtype), good
+
+
+def _chol_rows(G, big):
+    """Cholesky factor of G with failed rows rebuilt as huge decoupled
+    diagonals; returns (L, ok_rows).
+
+    ``torch.linalg.cholesky_ex`` reports the first failing leading minor
+    in ``info`` (rows info-1 onward are untrustworthy) where the
+    reference's JAX Cholesky NaN-poisons them; both end up as zero rows
+    with a ``big`` pivot, which zeroes those directions in L⁻¹."""
+    L, info = torch.linalg.cholesky_ex(G)
+    n = G.shape[-1]
+    rows = torch.arange(n, device=G.device)
+    ok = ~((info > 0) & (rows >= info - 1))
+    ok = ok & torch.isfinite(torch.view_as_real(L)).all(dim=-1).all(dim=-1)
+    L = torch.where(ok[:, None], L, 0.0)
+    L = L + torch.diag((~ok).to(big.dtype) * big).to(G.dtype)
+    return L, ok
+
+
+def _whiten_chol(G, eps):
+    """Cholesky-based whitening — same contract as :func:`_whiten`.
+
+    δ-regularized chol(G + δI), δ = 20·eps·max(diag): directions with
+    Gram eigenvalue ≤ δ come out damped and are flagged by the whitened
+    M-norm diag(CᴴGC) = 1 − δ‖C[:, i]‖² < 1/2, then a second
+    (CholeskyQR2) pass re-measures the whitened Gram from the ORIGINAL G
+    so amplified noise directions drop out (see the reference docstring
+    for the measured failures each step prevents)."""
+    G = _hermitize(G)
+    rdtype = G.real.dtype
+    n = G.shape[-1]
+    fi = torch.finfo(rdtype)
+    dmax = torch.clamp(torch.diagonal(G).real.max(), min=fi.tiny)
+    delta = 20.0 * eps * dmax
+    eye = torch.eye(n, dtype=G.dtype, device=G.device)
+    big = dmax / fi.eps
+    L, fin = _chol_rows(G + delta * eye, big)
+    Cm = torch.linalg.solve_triangular(L, eye, upper=False)   # L⁻¹
+    mnorm = 1.0 - delta * (Cm.abs() ** 2).sum(dim=1)
+    good = (mnorm > 0.5) & fin
+    # Dropped directions become ZERO columns (their 1/√δ-scaled entries
+    # would otherwise swamp H and cost the Jacobi RR its small values).
+    Cm = Cm * good[:, None].to(Cm.dtype)
+    G2 = Cm @ G @ Cm.mH
+    d2 = torch.diagonal(G2).real
+    good = good & (d2 > 0.5)
+    gm = good.to(rdtype)
+    G2 = (G2 * (gm[:, None] * gm[None, :]).to(G2.dtype)
+          + torch.diag(1.0 - gm).to(G2.dtype))
+    L2, fin2 = _chol_rows(_hermitize(G2), big)
+    good = good & fin2
+    Cm2 = torch.linalg.solve_triangular(L2, eye, upper=False) @ Cm
+    Cm2 = Cm2 * good[:, None].to(Cm2.dtype)
+    return Cm2.mH, good
+
+
+def _gram(U, V):
+    return U.conj() @ V.T
+
+
+def lobpcg(A: Callable, M: Optional[Callable], X0: torch.Tensor, nev: int,
+           maxiter: int = 200, tol: float = 1e-6,
+           precond: Optional[Callable] = None,
+           scale_floor: float = 3e-2,
+           kernel_project: Optional[Callable] = None,
+           rr_tol: Optional[float] = None,
+           generator: Optional[torch.Generator] = None) -> LobpcgResult:
+    """LOBPCG on the Hermitian pencil (A, M) — see module docstring.
+
+    ``X0``: (m, *dof_shape) complex start block, m >= nev; ``M=None`` is
+    the identity mass. Relative residual ‖Ax − λMx‖ / scale with
+    scale = max(|λ_j|, ``scale_floor``·max|λ|, 1e-3).
+    ``kernel_project(X)`` returns the kernel component of each row; it
+    is subtracted from the updated X and P every iteration.
+    ``rr_tol``: looser Rutishauser stop for the Rayleigh–Ritz eigh (None
+    keeps machine precision). ``generator``: source of the noise that
+    reseeds zero rows of ``X0`` (default: seeded with ``RESEED`` on
+    X0's device).
+    """
+    dof_shape = tuple(X0.shape[1:])
+    m = X0.shape[0]
+    if nev > m:
+        raise ValueError(f"nev={nev} exceeds block size m={m}")
+    cdtype = X0.dtype
+    rdtype = cdtype.to_real()
+    fi = torch.finfo(rdtype)
+    dev = X0.device
+    eps = 50.0 * fi.eps
+    floor = scale_floor
+
+    def flat(op):
+        return lambda X: op(X.reshape((X.shape[0],) + dof_shape)).reshape(
+            X.shape[0], -1)
+
+    Af = flat(A)
+    Mf = flat(M) if M is not None else (lambda X: X)
+    Pf = flat(precond) if precond is not None else None
+    Kf = flat(kernel_project) if kernel_project is not None else None
+
+    X = X0.reshape(m, -1).to(cdtype)
+    # Reseed degenerate (zero) warm-start rows: zero rows are ABSORBING
+    # under the LOBPCG update (R = 0 ⇒ W = 0). The max(·, 1) floor makes
+    # an all-zero block reseed every row.
+    rn = torch.linalg.vector_norm(X, dim=1)
+    bad0 = rn < 1e-6 * torch.clamp(rn.max(), min=1.0)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(RESEED)
+    fr = torch.randn((2, m, X.shape[1]), generator=generator, dtype=rdtype,
+                     device=dev)
+    X = torch.where(bad0[:, None], torch.complex(fr[0], fr[1]), X)
+
+    C, _ = _whiten(_gram(X, Mf(X)), eps)
+    X = C.T @ X                      # M-orthonormal start block
+    P = torch.zeros_like(X)
+    res = torch.full((m,), float("inf"), dtype=rdtype, device=dev)
+
+    def rownorm(U, MU):
+        s = torch.rsqrt(torch.clamp((U.conj() * MU).sum(dim=1).real,
+                                    min=fi.tiny))
+        # Exact-zero (locked) rows stay zero.
+        nz = (torch.linalg.vector_norm(U, dim=1) > 0).to(rdtype)
+        return (s * nz)[:, None]
+
+    def body(X, AX, MX, P, AP, MP):
+        # Ritz values of the current (M-orthonormal) X.
+        lam = (X.conj() * AX).sum(dim=1).real
+        R = AX - MX * lam[:, None]
+        alam = lam.abs()
+        scale = torch.maximum(alam, torch.clamp(floor * alam.max(),
+                                                min=1e-3))
+        rel = torch.linalg.vector_norm(R, dim=1) / scale
+        # A whitening-dropped (all-zero) row must read as unconverged.
+        xnorm = (X.conj() * MX).sum(dim=1).real
+        rel = torch.where(xnorm > 0.5, rel, float("inf"))
+        conv = rel < tol
+
+        W = Pf(R) if Pf is not None else R
+        # M-project out span(X):  w_i -= Σ_j ⟨x_j, M w_i⟩ x_j.
+        W = W - (W.conj() @ MX.T).conj() @ X
+        # Soft locking: zero converged rows of W and P.
+        mask = (~conv)[:, None].to(rdtype)
+        W = W * mask
+        P, AP, MP = P * mask, AP * mask, MP * mask
+        AW, MW = Af(W), Mf(W)
+        # Unit M-norm W and P rows keep the S-basis Gram well scaled.
+        sw, sp_ = rownorm(W, MW), rownorm(P, MP)
+        W, AW, MW = W * sw, AW * sw, MW * sw
+        P, AP, MP = P * sp_, AP * sp_, MP * sp_
+
+        S = torch.cat([X, W, P], dim=0)                   # (3m, N)
+        AS = torch.cat([AX, AW, AP], dim=0)
+        MS = torch.cat([MX, MW, MP], dim=0)
+        C, good = _whiten_chol(_gram(S, MS), eps)        # (3m, 3m)
+        H = _hermitize(C.mH @ _gram(S, AS) @ C)
+        # Dropped directions: Ritz values above the spectrum, moderately
+        # (a Gershgorin bound keeps the matrix scale sane).
+        big = 2.0 * H.abs().sum(dim=1).max() + 1.0
+        H = H + torch.diag((~good).to(rdtype) * big).to(H.dtype)
+        theta, Y = jacobi_eigh(H, rel_tol=rr_tol)         # ascending
+        Ym = C @ Y[:, :m]                                 # coeffs of new X
+        Xn, AXn, MXn = Ym.T @ S, Ym.T @ AS, Ym.T @ MS
+        # Implicit new P: W/P components of the update (X block zeroed).
+        Yp = Ym.clone()
+        Yp[:m] = 0
+        Pn, APn, MPn = Yp.T @ S, Yp.T @ AS, Yp.T @ MS
+        # Whiteout guard: if whitening dropped EVERY direction the update
+        # is zero (absorbing); freeze the block instead.
+        ok = good.any()
+        Xn, AXn, MXn = (torch.where(ok, a, b) for a, b in
+                        ((Xn, X), (AXn, AX), (MXn, MX)))
+        Pn, APn, MPn = (torch.where(ok, a, b) for a, b in
+                        ((Pn, P), (APn, AP), (MPn, MP)))
+        if Kf is not None:
+            # One 2m-row projector call for X and P (A annihilates the
+            # removed kernel component, so AX needs no correction).
+            K2 = Kf(torch.cat([Xn, Pn], dim=0))
+            M2 = Mf(K2)
+            Xn, MXn = Xn - K2[:m], MXn - M2[:m]
+            Pn, MPn = Pn - K2[m:], MPn - M2[m:]
+        # RANK-AWARE done: the nev LOWEST healthy Ritz rows must be
+        # converged, not rows [:nev] (warm starts arrive unsorted).
+        lam_eff = torch.where(xnorm > 0.5, lam, float("inf"))
+        low = torch.argsort(lam_eff, stable=True)[:nev]
+        done = (rel[low] < tol).all()
+        # Degeneration stop: fewer than nev healthy rows cannot complete.
+        done = done | ((xnorm > 0.5).sum() < nev)
+        return (Xn, AXn, MXn, Pn, APn, MPn), rel, done
+
+    def tracked(res):
+        # Worst of the nev BEST finite rows (an inf sentinel of a
+        # dropped row must not disarm the stagnation stop).
+        resh = torch.where(torch.isfinite(res), torch.clamp(res, max=1e6),
+                           1e6)
+        return torch.sort(resh).values[:nev].max()
+
+    it, done, seg = 0, False, 16
+    while it < maxiter and not done:
+        # Segment refresh (also the first AX/MX/AP/MP): they are formed
+        # by recombination inside a segment; recomputing them between
+        # segments kills the drift.
+        state = (X, Af(X), Mf(X), P, Af(P), Mf(P))
+        res0 = tracked(res)
+        it0 = it
+        while it < maxiter and it - it0 < seg and not done:
+            state, res, done_t = body(*state)
+            X, P = state[0], state[3]
+            it += 1
+            # The one host read per iteration: the convergence flag.
+            done = bool(done_t)
+        # Stagnation stop: a whole segment without progress on the worst
+        # tracked residual means a numerical floor.
+        if not done:
+            done = bool(tracked(res) > 0.97 * res0)
+
+    X, AX, MX = state[0], state[1], state[2]
+    # Final Ritz data on the exit state (X M-orthonormal up to roundoff).
+    nrm = torch.clamp((X.conj() * MX).sum(dim=1).real, min=fi.tiny)
+    lam = (X.conj() * AX).sum(dim=1).real / nrm
+    R = AX - MX * lam[:, None]
+    alam = lam.abs()
+    rel = torch.linalg.vector_norm(R, dim=1) / torch.maximum(
+        alam, torch.clamp(floor * alam.max(), min=1e-3))
+    # Zero (whitening-dropped) rows: unconverged AND sorted last.
+    healthy = nrm > 0.5 * nrm.max()
+    rel = torch.where(healthy, rel, float("inf"))
+    lam = torch.where(healthy, lam, float("inf"))
+    lam, order = torch.sort(lam, stable=True)
+    rel = rel[order]
+    Xout = X[order]
+    # Keep inf sentinels out of caller outputs; converged=False flags them.
+    finite = torch.isfinite(lam)
+    lam_top = torch.where(finite, lam, -float("inf")).max()
+    lam_top = torch.where(torch.isfinite(lam_top), lam_top, 0.0)
+    lam = torch.where(finite, lam, lam_top)
+    rel = torch.where(torch.isfinite(rel), torch.clamp(rel, max=1e6), 1e6)
+    return LobpcgResult(eigenvalues=lam[:nev],
+                        eigenvectors=Xout.reshape((m,) + dof_shape),
+                        iterations=it,
+                        residual_norms=rel[:nev],
+                        converged=rel[:nev] < tol)

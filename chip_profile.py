@@ -1,0 +1,201 @@
+#!/usr/bin/env python3
+"""Where the time goes in the port's FCC headline sweep on one NVIDIA GPU.
+
+    python3 chip_profile.py      # needs one card; no arguments
+
+Runs the headline configuration of ``chip_smoke.py`` (one cold pass
+first) and prints, one line each:
+
+1. the pass: wall, host refine, device solve split into per-k setup and
+   LOBPCG (CUDA-synchronised host clock), time per LOBPCG iteration, the
+   rate over all nk k-points and the steady rate over k-points 2..nk
+   (the rate ``bench.py`` reports for its warm mode);
+2. the per-k setup pieces of the spectral solve at one k (CUDA events,
+   median of 20);
+3. a ``torch.profiler`` trace of the device solve of two k-points: the
+   device operations (kernels, copies, fills), the device's busy time
+   and idle share of the traced window and of the same solves run
+   untraced (the profiler slows the host), the device time by group
+   and the operations ranked by device time.
+
+Every figure is measured in this run; the card's name and power limit
+come first.
+"""
+
+import statistics
+import subprocess
+import sys
+import time
+
+import chip_smoke  # sets the host BLAS thread cap before numpy loads
+
+TRACE_K = (4, 5)   # k-points of the traced window (steady warm starts)
+# Device operations grouped by a substring of their name, first match wins.
+GROUPS = (("Jacobi kernel", "jacobi_eigh_kernel"), ("GEMM", "gemm"),
+          ("triangular solve", "trsm"), ("Cholesky", "potrf"),
+          ("copies", "copy"), ("copies", "Cat"), ("copies", "Memcpy"))
+
+
+def timed(fn, into):
+    """``fn`` wrapped to append its CUDA-synchronised wall (s) to ``into``."""
+    import torch
+
+    def w(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        into.append(time.perf_counter() - t)
+        return out
+    return w
+
+
+def phase_pass(kc, op, sweep):
+    """One warm pass with the solve, its LOBPCG and the refine timed."""
+    from bravais_tpu_torch.eigen import lobpcg as lobpcg_mod
+
+    t_solve, t_lob, t_ref = [], [], []
+    plain = lobpcg_mod.lobpcg
+    lobpcg_mod.lobpcg = timed(plain, t_lob)
+    try:
+        solve = op.make_spectral_solve_fn()   # binds the timed lobpcg
+    finally:
+        lobpcg_mod.lobpcg = plain
+    wsolve = timed(solve, t_solve)
+    wsolve.refine_np = timed(solve.refine_np, t_ref)
+    sweep.solve_fn = wsolve
+    res = sweep.run_warm(kc)
+    nk = len(kc)
+    per_k = [s + r for s, r in zip(t_solve, t_ref)]
+    iters = int(res.iterations.sum())
+    chip_smoke.log("pass", f"wall {res.wall_s:.4f} s for nk={nk}: host "
+                   f"refine {sum(t_ref):.4f} s, device solve "
+                   f"{sum(t_solve):.4f} s (setup and block transforms "
+                   f"{sum(t_solve) - sum(t_lob):.4f} s, LOBPCG "
+                   f"{sum(t_lob):.4f} s over {iters} iterations = "
+                   f"{1e3 * sum(t_lob) / iters:.3f} ms/iter); "
+                   f"{nk / res.wall_s:.4f} eig/s over all k, steady "
+                   f"{(nk - 1) / sum(per_k[1:]):.4f} eig/s over k 2..{nk} "
+                   f"(first k {per_k[0]:.4f} s, {res.iterations[0]} iters)")
+    return res
+
+
+def phase_setup(kc, op):
+    """CUDA-event times of the per-k setup pieces at k = kc[TRACE_K[0]]."""
+    import torch
+    from bravais_tpu_torch.utils.timing import cuda_ms
+
+    fd = op.fastdiag_G()
+    k = kc[TRACE_K[0]]
+    s_ = op.default_fd_shift()
+    TA = fd.blocks([("A", 1.0)], k)
+    TM = fd.blocks([("M", 1.0)], k)
+    TG = fd.blocks([("G", 1.0)], k)
+    Lc = torch.linalg.cholesky(TA + s_ * TM)
+    eyeD = torch.eye(fd.D, dtype=TA.dtype, device=TA.device)
+    Lb = TG.mH @ (TM @ TG)
+    eyeH = 1e-7 * torch.eye(Lb.shape[-1], dtype=TA.dtype, device=TA.device)
+    pieces = {
+        "blocks A": lambda: fd.blocks([("A", 1.0)], k),
+        "blocks M": lambda: fd.blocks([("M", 1.0)], k),
+        "blocks G": lambda: fd.blocks([("G", 1.0)], k),
+        f"cholesky {tuple(Lc.shape)}": lambda: torch.linalg.cholesky(
+            TA + s_ * TM),
+        "its triangular inverse": lambda: torch.linalg.solve_triangular(
+            Lc, eyeD.expand(Lc.shape), upper=False),
+        f"L = GᴴMG {tuple(Lb.shape)} and cholesky_ex": lambda:
+            torch.linalg.cholesky_ex(TG.mH @ (TM @ TG) + eyeH),
+    }
+    ms = {name: cuda_ms(fn, reps=20) for name, fn in pieces.items()}
+    chip_smoke.log("setup", f"per-k setup {sum(ms.values()):.4f} ms: " +
+                   ", ".join(f"{n} {t:.4f} ms" for n, t in ms.items()))
+
+
+def phase_trace(kc, op, sweep):
+    """Profile the device solve (no refine) of the TRACE_K k-points."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    solve = op.make_spectral_solve_fn()
+    r, _ = solve(sweep._x0(), kc[TRACE_K[0] - 1], sweep.nev, sweep.tol,
+                 sweep.maxiter)
+    X0 = r.eigenvectors
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    X = X0
+    for i in TRACE_K:
+        X = solve(X, kc[i], sweep.nev, sweep.tol, sweep.maxiter)[0] \
+            .eigenvectors
+    torch.cuda.synchronize()
+    plain_wall = 1e6 * (time.perf_counter() - t0)   # us, no profiler
+    X, iters = X0, 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in TRACE_K:
+            r, _ = solve(X, kc[i], sweep.nev, sweep.tol, sweep.maxiter)
+            X = r.eigenvectors
+            iters += r.iterations
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        raise RuntimeError("the profiler recorded no device work")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    window = spans[-1][1] - spans[0][0]
+    chip_smoke.log("trace", f"device solve of k {list(TRACE_K)} ({iters} "
+                   f"iterations): {len(dev)} device operations, busy "
+                   f"{busy / 1e3:.3f} ms of a {window / 1e3:.3f} ms traced "
+                   f"window (idle share {1 - busy / window:.4f}); the same "
+                   f"solves untraced take {plain_wall / 1e3:.3f} ms (idle "
+                   f"share {1 - busy / plain_wall:.4f} if the busy time is "
+                   f"the same)")
+    per_name = {}
+    for e in dev:
+        c, t = per_name.get(e.name, (0, 0.0))
+        per_name[e.name] = (c + 1, t + e.time_range.elapsed_us())
+    total = sum(t for _, t in per_name.values())
+    share = {}
+    for name, (_, t) in per_name.items():
+        g = next((g for g, key in GROUPS if key in name), "other")
+        share[g] = share.get(g, 0.0) + t
+    chip_smoke.log("trace", "device time by group: " + ", ".join(
+        f"{g} {100 * t / total:.2f}%"
+        for g, t in sorted(share.items(), key=lambda x: -x[1])))
+    for name, (c, t) in sorted(per_name.items(), key=lambda x: -x[1][1])[:15]:
+        chip_smoke.log("trace", f"{100 * t / total:6.2f}% {t / 1e3:8.3f} ms "
+                       f"x{c:<5d} {name[:110]}")
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_profile: no CUDA device; nothing was run",
+              file=sys.stderr)
+        return 1
+    import bravais_tpu_torch  # noqa: F401  (precision flags)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    chip_smoke.log("device", smi)
+    dev = torch.device("cuda", 0)
+    _, kc, op, sweep = chip_smoke.headline(dev)
+    sweep.run_warm(kc)   # cold pass: build, caches, allocator
+    res = phase_pass(kc, op, sweep)
+    phase_setup(kc, op)
+    phase_trace(kc, op, sweep)
+    chip_smoke.log("done", f"iters/k {statistics.mean(res.iterations):.2f}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
