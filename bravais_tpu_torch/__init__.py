@@ -2,17 +2,23 @@
 
 Computes photonic band structures on an NVIDIA GPU: for each k on a
 Brillouin-zone path, the lowest bands of the Bloch Maxwell pencil
-A(k)x = λMx by a complex LOBPCG in the twisted-DFT block basis, then an
-exact float64 host refine of the blocks that carry the bands. The JAX
+A(k)x = λMx by a complex LOBPCG, then a float64 host refine. Two
+engines: the spectral one (element-invariant coefficients: LOBPCG in the
+twisted-DFT block basis, exact refine of the blocks that carry the
+bands) and the matrix-free field one (any ε: fused element applies,
+Chebyshev gradient projector, host Rayleigh–Ritz refine). The JAX
 package ``bravais_tpu`` is the reference; each module here names its
 counterpart there. This package imports torch, numpy and scipy only.
 
 Subpackages mirror the reference: ``lattices``, ``meshing``, ``spaces``
-(host metadata), ``operators`` (host f64 twins, stencil extraction, the
-twisted-DFT block factory, the spectral solve), ``eigen`` (LOBPCG and
-the Jacobi Rayleigh–Ritz eigensolver with its hand-written CUDA kernel,
-``csrc/jacobi_eigh.cu``), ``bands`` (the warm-started sweep), ``utils``;
-``convert`` carries reference state across.
+(host metadata, device gather/scatter and contractions), ``operators``
+(host f64 twins, stencil extraction, the twisted-DFT block factory, the
+curl-curl and QP-Laplace operators with their element kernels
+``csrc/nd_apply.cu`` and ``csrc/h1_apply.cu``), ``eigen`` (LOBPCG, the
+host refine and the Jacobi eigensolver with its kernel
+``csrc/jacobi_eigh.cu``), ``bands`` (the warm-started sweep), ``utils``
+(device timing, the kernel builder); ``convert`` carries reference state
+across.
 """
 
 __version__ = "0.1.0"

@@ -3,13 +3,20 @@
 Port of ``BandSweep.__init__`` (the refine and ``device_tol`` rules),
 ``_refine_host`` and ``run_warm`` from ``bravais_tpu/bands/sweep.py``.
 Each k is solved on the device from the previous k's eigenvector block
-(which stays on the device); the tiny (m, B) block support is copied to
-the host, where the exact f64 spectral refine replaces the float32
-device eigenvalues.
+(which stays on the device), then refined in f64 on the host:
+
+* a SPECTRAL solve hands over the tiny (m, B) block support, and the
+  exact f64 block refine (``solve_fn.refine_np``) replaces the float32
+  eigenvalues; a refine that fails its cross-check against the device
+  values (or an empty support) falls back to ``host_rayleigh_ritz`` on
+  the whole m-row block;
+* a FIELD solve (no support) brings the eigenvector block to the host
+  and refines it with ``host_rayleigh_ritz`` on its lowest nev+2 rows.
 
 The reference overlaps the host refine of k with the device solve of
 k+1; this host-driven loop runs them one after the other. The batched
-``run`` and the chain/segment modes are not ported yet.
+``run``, the chain/segment modes and the near-Γ loose stop are not
+ported.
 """
 
 from __future__ import annotations
@@ -20,6 +27,8 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from bravais_tpu_torch.eigen.refine import host_rayleigh_ritz
 
 __all__ = ["BandSweep", "SweepResult"]
 
@@ -38,6 +47,9 @@ class SweepResult:
                   refined)
     wall_s      : wall time of the whole sweep, device work included
     refine_s    : the part of ``wall_s`` spent in the host f64 refine
+    fallbacks   : k-points whose spectral refine failed its cross-check
+                  (or had an empty support) and went to the host
+                  Rayleigh–Ritz
     """
 
     eigenvalues: np.ndarray
@@ -45,20 +57,18 @@ class SweepResult:
     residuals: np.ndarray
     wall_s: float
     refine_s: float = 0.0
-
-
-class RefineError(RuntimeError):
-    """The f64 refine could not confirm a k-point's device solve."""
+    fallbacks: int = 0
 
 
 class BandSweep:
-    """Warm-started sweep over Cartesian k-points with a spectral solve.
+    """Warm-started sweep over Cartesian k-points.
 
     Parameters
     ----------
     operator   : the ``BlochCurlCurl`` whose space and dtype define the
                  problem.
-    solve_fn   : ``operator.make_spectral_solve_fn()``.
+    solve_fn   : ``operator.make_spectral_solve_fn()`` (spectral engine)
+                 or ``operator.make_solve_fn()`` (field engine).
     nev        : number of bands; ``block`` the LOBPCG block size
                  (default nev + max(4, nev // 2)).
     tol        : target; in complex64 with ``tol < 1e-4`` the f64 refine
@@ -95,26 +105,31 @@ class BandSweep:
                             dtype=self.op.rdtype, device=self.op.device)
         return torch.complex(t[0], t[1])
 
-    def _refine_host(self, lam_d: np.ndarray, support: np.ndarray, k):
-        """f64 spectral refine of one k-point, cross-checked against the
-        device eigenvalues. A failed cross-check (or an empty support)
-        raises: the all-dof host Rayleigh–Ritz fallback of the reference
-        is not ported yet, and keeping the device values would hide the
-        fault."""
+    def _refine_host(self, lam_d: np.ndarray, support, X: torch.Tensor,
+                     k):
+        """f64 refine of one k-point; returns (eigenvalues, residuals,
+        fell back). With a block ``support`` (spectral solve): the exact
+        block refine, cross-checked against the device eigenvalues ``lam_d``;
+        a failed check or an empty support falls back to the host
+        Rayleigh–Ritz on all m rows of the eigenvector block ``X`` (a
+        true band may sit in a guard row). Without (field solve): the
+        host Rayleigh–Ritz on the lowest nev+2 rows."""
+        if support is None:
+            lam, res = host_rayleigh_ritz(self.op, X.cpu().numpy(), k,
+                                          self.nev)
+            return lam, res, False
         ref = self.solve_fn.refine_np(support, k, self.nev)
-        if ref is None:
-            raise RefineError(f"k={np.asarray(k).tolist()}: empty block "
-                              f"support (collapsed device solve)")
-        lam, res = ref
-        lam_d = lam_d[:self.nev]
-        sc = np.maximum(np.abs(lam_d),
-                        3e-2 * max(float(np.abs(lam_d).max()), 1e-30))
-        if lam.size != lam_d.size or not np.all(
-                np.abs(lam - lam_d) / sc < 3e-2):
-            raise RefineError(
-                f"k={np.asarray(k).tolist()}: refine cross-check failed "
-                f"(device {lam_d.tolist()} vs refined {lam.tolist()})")
-        return lam, res
+        if ref is not None:
+            lam, res = ref
+            lam_d = lam_d[:self.nev]
+            sc = np.maximum(np.abs(lam_d),
+                            3e-2 * max(float(np.abs(lam_d).max()), 1e-30))
+            if lam.size == lam_d.size and np.all(
+                    np.abs(lam - lam_d) / sc < 3e-2):
+                return lam, res, False
+        lam, res = host_rayleigh_ritz(self.op, X.cpu().numpy(), k,
+                                      self.nev, rows=X.shape[0])
+        return lam, res, True
 
     def run_warm(self, k_cart: np.ndarray) -> SweepResult:
         """Sequential sweep, each k warm-started from the previous
@@ -122,7 +137,7 @@ class BandSweep:
         k_cart = np.asarray(k_cart, np.float64)
         X = self._x0()
         lams, itss, ress = [], [], []
-        refine_s = 0.0
+        refine_s, fallbacks = 0.0, 0
         t0 = time.perf_counter()
         for k in k_cart:
             r, support = self.solve_fn(X, k, self.nev, self.tol,
@@ -130,14 +145,18 @@ class BandSweep:
             lam = r.eigenvalues.double().cpu().numpy()
             res = r.residual_norms.double().cpu().numpy()
             if self.refine:
-                sup = support.double().cpu().numpy()
+                sup = (support.double().cpu().numpy()
+                       if support is not None else None)
                 t1 = time.perf_counter()
-                lam, res = self._refine_host(lam, sup, k)
+                lam, res, fell = self._refine_host(lam, sup,
+                                                   r.eigenvectors, k)
                 refine_s += time.perf_counter() - t1
+                fallbacks += fell
             lams.append(lam)
             itss.append(r.iterations)
             ress.append(res)
             X = r.eigenvectors
         wall = time.perf_counter() - t0
         return SweepResult(np.asarray(lams), np.asarray(itss, np.int32),
-                           np.asarray(ress), wall_s=wall, refine_s=refine_s)
+                           np.asarray(ress), wall_s=wall, refine_s=refine_s,
+                           fallbacks=fallbacks)

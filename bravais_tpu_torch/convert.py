@@ -1,11 +1,13 @@
 """Carry reference state across into the port.
 
-The spectral band solve has no weights: its state is the set of k=0
-stencils S_δ (plain f64 numpy arrays held by the reference's
-``FastDiag.stencils``) plus the start block, which both packages draw
-from ``np.random.default_rng(seed)``. Building the port's FastDiag from
-the reference's stencils lets the port's device half and solve run on
-exactly the reference's S_δ, independent of the port's own extraction.
+The band solves have no weights. The spectral solve's state is the set
+of k=0 stencils S_δ (plain f64 numpy arrays held by the reference's
+``FastDiag.stencils``); the field solve's is the f64 quadrature planes of
+ε and μ⁻¹ (``_eps_q64``, ``_mu_inv_q64``) plus the A, M stencils of its
+(mean-twin) preconditioner and the L stencil of its projector. The start
+block both packages draw from ``np.random.default_rng(seed)``. Building
+the port's objects from these arrays lets the port run on exactly the
+reference's state, independent of its own evaluation and extraction.
 """
 
 from __future__ import annotations
@@ -13,10 +15,12 @@ from __future__ import annotations
 from typing import Mapping, Sequence
 
 import numpy as np
+import torch
 
+from bravais_tpu_torch.operators.curlcurl import BlochCurlCurl
 from bravais_tpu_torch.operators.fastdiag import FastDiag
 
-__all__ = ["fastdiag_from_reference"]
+__all__ = ["fastdiag_from_reference", "curlcurl_field_from_reference"]
 
 
 def fastdiag_from_reference(stencils: Mapping[str, np.ndarray],
@@ -33,3 +37,29 @@ def fastdiag_from_reference(stencils: Mapping[str, np.ndarray],
                              f"expected ({3 ** len(fd.shape)}, {fd.D}, *)")
         fd.stencils[name] = S
     return fd
+
+
+def curlcurl_field_from_reference(space, eps_q64: np.ndarray,
+                                  mu_inv_q64: np.ndarray,
+                                  stencils: Mapping[str, np.ndarray],
+                                  stencil_L: np.ndarray, device,
+                                  dtype=torch.complex64) -> BlochCurlCurl:
+    """The port's ``BlochCurlCurl`` on ``space`` (a port NedelecSpace)
+    with the reference's field state: the ε and μ⁻¹ quadrature planes
+    (n₁, q, n₂, q, n₃, q), its "A" and "M" stencils (``_fd.stencils``)
+    and its "L" stencil (``_fdL.stencils["L"]``)."""
+    qshape = space.qpoints_phys().shape[:-1]
+    for name, a in (("eps", eps_q64), ("mu_inv", mu_inv_q64)):
+        if np.shape(a) != qshape:
+            raise ValueError(f"{name} plane has shape {np.shape(a)}, "
+                             f"expected {qshape}")
+    op = BlochCurlCurl(space, eps=np.array(eps_q64, np.float64),
+                       mu_inv=np.array(mu_inv_q64, np.float64),
+                       dtype=dtype, device=device)
+    g = space.grid
+    op.set_fastdiag(fastdiag_from_reference(
+        {nm: stencils[nm] for nm in ("A", "M")}, g.shape, space.p, 3,
+        op.A_rows, device))
+    op.set_fastdiag_L(fastdiag_from_reference(
+        {"L": stencil_L}, g.shape, space.p, 1, op.A_rows, device))
+    return op

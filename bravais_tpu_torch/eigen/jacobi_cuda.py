@@ -2,10 +2,9 @@
 
 ``csrc/jacobi_eigh.cu`` replaces ``bravais_tpu/eigen/pallas_jacobi.py::
 jacobi_eigh_pallas`` on NVIDIA Hopper (sm_90a). It is built at first use
-with ``nvcc`` into ``bravais_tpu_torch/_build/`` as a shared library with
-a plain C interface (the file name carries a hash of the source, so an
-edited source rebuilds) and loaded with ctypes. Nothing is built or
-loaded when this module is imported.
+by ``utils/cuda_build.py`` (nvcc into ``bravais_tpu_torch/_build/``, a
+plain C interface loaded with ctypes). Nothing is built or loaded when
+this module is imported.
 
 ``launches`` counts kernel launches; it is incremented only where the
 kernel is launched.
@@ -14,64 +13,25 @@ kernel is launched.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
 from bravais_tpu_torch.eigen.jacobi_eigh import pad_odd, sort_pairs
+from bravais_tpu_torch.utils import cuda_build
 
-__all__ = ["jacobi_eigh_cuda", "sweeps_run", "build", "launches", "MAX_N"]
+__all__ = ["jacobi_eigh_cuda", "sweeps_run", "launches", "MAX_N"]
 
 MAX_N = 64
 launches = 0
 
-_PKG = Path(__file__).resolve().parents[1]
-_SRC = _PKG / "csrc" / "jacobi_eigh.cu"
-_BUILD = _PKG / "_build"
 _lib = None
 _ready = set()   # device indices the kernel's shared-memory opt-in is set on
-
-
-def _nvcc() -> str:
-    cand = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                         "bin", "nvcc"), shutil.which("nvcc")]
-    for c in cand:
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)"
-                       " — the Jacobi kernel is built from source")
-
-
-def build() -> Path:
-    """Compile the kernel for sm_90a if its library is not built yet;
-    returns the library path. Raises on a failed build."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src).hexdigest()[:16]
-    lib = _BUILD / f"libjacobi_eigh_{tag}.so"
-    if lib.exists():
-        return lib
-    _BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = _BUILD / f"{lib.name}.tmp{os.getpid()}"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-           "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    (_BUILD / f"libjacobi_eigh_{tag}.ptxas.txt").write_text(proc.stderr)
-    os.replace(tmp, lib)
-    return lib
 
 
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = cuda_build.load("jacobi_eigh")
         fn = lib.jacobi_eigh_launch
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,

@@ -15,8 +15,9 @@ segment in a CUDA graph.
 
 Conventions: block arrays are (m, N) with each ROW a vector;
 ⟨x, y⟩ = conj(x)·y; Gram G[i, j] = ⟨s_i, Op s_j⟩ = conj(S) @ (Op S).T.
-The operators ``A(X)``, ``M(X)``, ``precond(R)`` and
-``kernel_project(X)`` act on whole blocks (rows, *dof_shape).
+The operators ``A(X)``, ``M(X)``, ``AM(X)`` (the fused pair),
+``precond(R)`` and ``kernel_project(X)`` act on whole blocks
+(rows, *dof_shape).
 """
 
 from __future__ import annotations
@@ -124,6 +125,7 @@ def _gram(U, V):
 def lobpcg(A: Callable, M: Optional[Callable], X0: torch.Tensor, nev: int,
            maxiter: int = 200, tol: float = 1e-6,
            precond: Optional[Callable] = None,
+           AM: Optional[Callable] = None,
            scale_floor: float = 3e-2,
            kernel_project: Optional[Callable] = None,
            rr_tol: Optional[float] = None,
@@ -131,7 +133,9 @@ def lobpcg(A: Callable, M: Optional[Callable], X0: torch.Tensor, nev: int,
     """LOBPCG on the Hermitian pencil (A, M) — see module docstring.
 
     ``X0``: (m, *dof_shape) complex start block, m >= nev; ``M=None`` is
-    the identity mass. Relative residual ‖Ax − λMx‖ / scale with
+    the identity mass. ``AM(X)`` returns (A X, M X) in one call (e.g. the
+    fused Nédélec element kernel); it serves every place that needs
+    both, and separate ``A``/``M`` calls serve the rest. Relative residual ‖Ax − λMx‖ / scale with
     scale = max(|λ_j|, ``scale_floor``·max|λ|, 1e-3).
     ``kernel_project(X)`` returns the kernel component of each row; it
     is subtracted from the updated X and P every iteration.
@@ -155,8 +159,15 @@ def lobpcg(A: Callable, M: Optional[Callable], X0: torch.Tensor, nev: int,
         return lambda X: op(X.reshape((X.shape[0],) + dof_shape)).reshape(
             X.shape[0], -1)
 
+    def flat2(op):
+        def f(X):
+            a, b = op(X.reshape((X.shape[0],) + dof_shape))
+            return a.reshape(X.shape[0], -1), b.reshape(X.shape[0], -1)
+        return f
+
     Af = flat(A)
     Mf = flat(M) if M is not None else (lambda X: X)
+    AMf = flat2(AM) if AM is not None else (lambda X: (Af(X), Mf(X)))
     Pf = flat(precond) if precond is not None else None
     Kf = flat(kernel_project) if kernel_project is not None else None
 
@@ -204,7 +215,7 @@ def lobpcg(A: Callable, M: Optional[Callable], X0: torch.Tensor, nev: int,
         mask = (~conv)[:, None].to(rdtype)
         W = W * mask
         P, AP, MP = P * mask, AP * mask, MP * mask
-        AW, MW = Af(W), Mf(W)
+        AW, MW = AMf(W)
         # Unit M-norm W and P rows keep the S-basis Gram well scaled.
         sw, sp_ = rownorm(W, MW), rownorm(P, MP)
         W, AW, MW = W * sw, AW * sw, MW * sw
@@ -261,7 +272,7 @@ def lobpcg(A: Callable, M: Optional[Callable], X0: torch.Tensor, nev: int,
         # Segment refresh (also the first AX/MX/AP/MP): they are formed
         # by recombination inside a segment; recomputing them between
         # segments kills the drift.
-        state = (X, Af(X), Mf(X), P, Af(P), Mf(P))
+        state = (X, *AMf(X), P, *AMf(P))
         res0 = tracked(res)
         it0 = it
         while it < maxiter and it - it0 < seg and not done:

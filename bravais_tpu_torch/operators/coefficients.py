@@ -1,18 +1,24 @@
 """Scalar coefficients sampled at quadrature points (host, f64).
 
 Port of ``CoefLike`` and ``eval_coefficient`` from
-``bravais_tpu/operators/helmholtz.py:39-60``. Only what the
-empty-lattice slice needs; the dielectric shapes of
-``bravais_tpu/operators/coefficients.py`` are not ported yet.
+``bravais_tpu/operators/helmholtz.py:39-60`` and of the dielectric shapes
+of ``bravais_tpu/operators/coefficients.py`` (``periodic_distance``,
+``smoothed_indicator``, ``dielectric_rod``, ``dielectric_sphere``):
+material interfaces are resolved in the coefficient, sampled at the
+quadrature points. ``subcell_average`` is not ported yet.
+
+Shape predicates take physical coordinates ``x`` (..., d).
 """
 
 from __future__ import annotations
 
+from itertools import product
 from typing import Callable, Union
 
 import numpy as np
 
-__all__ = ["CoefLike", "eval_coefficient"]
+__all__ = ["CoefLike", "eval_coefficient", "periodic_distance",
+           "smoothed_indicator", "dielectric_rod", "dielectric_sphere"]
 
 CoefLike = Union[float, np.ndarray, Callable[[np.ndarray], np.ndarray]]
 
@@ -27,3 +33,41 @@ def eval_coefficient(coef: CoefLike, x: np.ndarray) -> np.ndarray:
         return v
     return np.broadcast_to(np.asarray(coef, dtype=np.float64),
                            x.shape[:-1]).copy()
+
+
+def periodic_distance(x: np.ndarray, center, lattice_A: np.ndarray
+                      ) -> np.ndarray:
+    """Distance from ``x`` (..., d) to ``center`` modulo lattice
+    translations (nearest image over the 3^d neighbour cells)."""
+    d = x.shape[-1]
+    delta = x - np.asarray(center, dtype=np.float64)
+    best = None
+    for shift in product((-1.0, 0.0, 1.0), repeat=d):
+        r = np.linalg.norm(delta + np.asarray(shift) @ lattice_A, axis=-1)
+        best = r if best is None else np.minimum(best, r)
+    return best
+
+
+def smoothed_indicator(r: np.ndarray, radius: float, width: float
+                       ) -> np.ndarray:
+    """~1 inside r < radius, ~0 outside, smoothed over ``width`` (tanh
+    profile); width=0 gives the sharp indicator."""
+    if width <= 0:
+        return (r < radius).astype(np.float64)
+    return 0.5 * (1.0 - np.tanh((r - radius) / width))
+
+
+def dielectric_rod(eps_in: float, eps_out: float, radius: float,
+                   center, lattice_A: np.ndarray,
+                   width: float = 0.0) -> Callable:
+    """Circular rod (2D) or sphere (3D) of permittivity ``eps_in`` in a
+    background ``eps_out``, periodically repeated."""
+    def eps(x: np.ndarray) -> np.ndarray:
+        r = periodic_distance(x, center, lattice_A)
+        ind = smoothed_indicator(r, radius, width)
+        return eps_out + (eps_in - eps_out) * ind
+    return eps
+
+
+# 3D: the same formula — the periodic distance handles it.
+dielectric_sphere = dielectric_rod

@@ -1,33 +1,37 @@
 """Bloch Maxwell curl-curl on tensor Nédélec elements — the spectral
-(twisted-DFT block) engine.
+(twisted-DFT block) engine and the matrix-free field engine.
 
-Port of the spectral-engine half of ``bravais_tpu/operators/curlcurl.py``.
-The Bloch problem is posed QUASI-PERIODICALLY: fields satisfy
-u(x + a_i) = e^{i k·a_i} u(x), the operator is the plain curl-curl
+Port of ``bravais_tpu/operators/curlcurl.py``. The Bloch problem is posed
+QUASI-PERIODICALLY: fields satisfy u(x + a_i) = e^{i k·a_i} u(x), the
+operator is the plain curl-curl
 
     a(u, v) = ∫ μ⁻¹ (∇×u)·conj(∇×v),   m(u, v) = ∫ ε u·conj(v),
 
-and k enters only through the wrap phases. For element-translation-
-invariant coefficients (every empty-lattice configuration) the pencil
-(A(k), M) and the discrete gradient G(k) are block-diagonal in the
-twisted-DFT basis (``operators/fastdiag.py``), so the whole LOBPCG runs
-on batched D×D blocks.
+and k enters only through the wrap phases of the element gather/scatter.
 
 What is here:
 
 * host f64 twins (NumPy): ``apply_A_np``, ``apply_M_np``,
-  ``apply_Gk_np`` — used to extract the k=0 stencils S_δ once;
-* ``fastdiag()`` / ``fastdiag_G()``: the A, M and G stencils, probed on
-  the 3×3×3 same-Jacobian twin grid and cached on disk;
-* ``make_spectral_solve_fn``: LOBPCG on the device blocks with the exact
-  Cholesky gradient projector and the (A + sM)⁻¹ factor preconditioner
-  (the reference's ``proj_method="chol"``, ``pc_rep="factor"``);
-* ``spectral_refine_np``: the exact f64 host refine of the candidate
-  blocks.
+  ``apply_Gk_np``, ``apply_GkH_np`` — stencil extraction and the refine;
+* ``fastdiag()`` / ``fastdiag_G()`` / ``fastdiag_L()``: the A, M, G and
+  deflation-Laplacian L stencils, probed on the 3×3×3 same-Jacobian twin
+  grid and cached on disk (for varying ε: the mean-coefficient twin);
+* the SPECTRAL engine (element-invariant coefficients):
+  ``make_spectral_solve_fn`` (LOBPCG on the twisted-DFT blocks) and
+  ``spectral_refine_np`` (exact f64 refine of the candidate blocks);
+* the FIELD engine (any ε, the dielectric path): matrix-free device
+  applies on blocks of fields (rows, 3, N₁, N₂, N₃) — ``apply_A``,
+  ``apply_M``, ``apply_AM`` through the fused Nédélec element kernel
+  (``operators/nd_apply.py``, on CUDA ``csrc/nd_apply.cu``), the discrete
+  gradient ``apply_Gk``/``apply_GkH``, the deflation Laplacian
+  ``apply_Lk`` through ``QPLaplace`` (the H1 kernel, ``csrc/h1_apply.cu``),
+  the preconditioned-Chebyshev gradient projector and
+  ``make_solve_fn`` (the reference's ``deflation="project-cheby"``,
+  ``precond="fastdiag"``).
 
-The field engine (matrix-free device applies, the Pallas Nédélec
-kernel), the companion ``BlochHelmholtz`` and the operator diagonals are
-not ported yet.
+Not ported yet: the other deflations and preconditioners of
+``make_solve_fn`` (``fd_precond_cg`` among them), the operator
+diagonals, the varying-ε branch of ``gradient_component_np``.
 """
 
 from __future__ import annotations
@@ -39,27 +43,36 @@ import torch
 
 from bravais_tpu_torch.operators.coefficients import (CoefLike,
                                                       eval_coefficient)
+from bravais_tpu_torch.operators.nd_apply import (NdConsts, comp_shapes,
+                                                  nedelec_apply)
+from bravais_tpu_torch.spaces import tensor as dtensor
 from bravais_tpu_torch.spaces import tensor_np as tensor
+from bravais_tpu_torch.spaces.h1 import H1Space
 from bravais_tpu_torch.spaces.nedelec import NedelecSpace
 
 __all__ = ["BlochCurlCurl"]
 
 _CYC = ((0, 1, 2), (1, 2, 0), (2, 0, 1))  # (r, s, t) cyclic triples
 
-#: LOBPCG residual-scale floor of the spectral solve in complex64 (the
+#: LOBPCG residual-scale floor of the device solves in complex64 (the
 #: f64 refine certifies the near-zero bands) and in other dtypes.
 SCALE_FLOOR_F32, SCALE_FLOOR = 0.3, 3e-2
 
+#: Kernel contraction per application of the Chebyshev gradient projector
+#: (the reference's measured production target).
+CHEBY_TARGET = 0.15
+
 
 class BlochCurlCurl:
-    """Host twins, stencils and the spectral solve for
-    (∇+ik)×μ⁻¹(∇+ik)× u = ω² ε u on ``space`` (NedelecSpace). Fields are
-    (3, N₁, N₂, N₃) complex; device work runs on ``device`` in
+    """Host twins, stencils, device applies and the spectral and field
+    solves for (∇+ik)×μ⁻¹(∇+ik)× u = ω² ε u on ``space`` (NedelecSpace).
+    Fields are (3, N₁, N₂, N₃) complex, device blocks (rows, 3, N₁, N₂,
+    N₃); device work runs on ``device`` (default the CUDA device) in
     ``dtype``."""
 
     def __init__(self, space: NedelecSpace, eps: CoefLike = 1.0,
                  mu_inv: CoefLike = 1.0, dtype=torch.complex64,
-                 device="cpu"):
+                 device="cuda"):
         self.space = space
         self.dtype = dtype
         self.rdtype = dtype.to_real()
@@ -72,6 +85,10 @@ class BlochCurlCurl:
         g = space.grid
         self.A_rows = g.lattice.A.astype(np.float64)   # rows a_i
         self.detJs = float(np.linalg.det(g.J))
+        # Companion scalar H1 space (same grid, order and quadrature): the
+        # domain of the discrete gradient and of the deflation Laplacian.
+        self.h1 = H1Space.make(g, space.p, space.q)
+        self._nd = None
 
     # -- host f64 twins -------------------------------------------------------
 
@@ -197,6 +214,167 @@ class BlochCurlCurl:
                                  *shape[c + 2:]))
         return np.stack(out)
 
+    def apply_GkH_np(self, u, k):
+        """f64 host adjoint of :meth:`apply_Gk_np`: ND field
+        (3, N₁, N₂, N₃) or block (m, 3, N₁, N₂, N₃) → H1 scalar."""
+        u = np.asarray(u, np.complex128)
+        if u.ndim == 5:
+            out = self._apply_GkH_np_core(np.moveaxis(u, 0, -1), k)
+            return np.moveaxis(out, -1, 0)
+        return self._apply_GkH_np_core(u, k)
+
+    def _apply_GkH_np_core(self, u, k):
+        sp = self.space
+        ph = self._np_phases(k)
+        acc = 0.0
+        for c in range(3):
+            shape = u[c].shape
+            r = u[c].reshape(*shape[:c], sp.grid.shape[c], sp.p,
+                             *shape[c + 1:])
+            d = np.moveaxis(
+                np.tensordot(sp.Dnode, r, axes=((0,), (c + 1,))), 0, c + 1)
+            acc = acc + tensor.scatter_add_axis_np(d, c, sp.grid.shape[c],
+                                                   sp.p, ph[c])
+        return acc
+
+    def gradient_component_np(self, u, k) -> np.ndarray:
+        """f64 host P u = G L⁻¹ Gᴴ M u by the exact fast-diagonal L
+        solve, for element-invariant coefficients (the refine's
+        projection of a block (m, 3, N₁, N₂, N₃)). The reference's
+        varying-ε branch (mean-twin-preconditioned CG) is not ported; the
+        varying-ε refine shifts the gradients instead."""
+        if not self._coef_elem_invariant():
+            raise ValueError("gradient_component_np is exact only for "
+                             "element-invariant coefficients")
+        k = np.asarray(k, np.float64)
+        lsolve = self.fastdiag_L().solver_np([("L", 1.0)], k)
+        rhs = self.apply_GkH_np(self.apply_M_np(u, k), k)
+        return self.apply_Gk_np(lsolve(rhs), k)
+
+    # -- device applies (field engine) ----------------------------------------
+
+    def phases(self, k) -> torch.Tensor:
+        """φ_i = e^{i k·a_i} for the three primitive directions,
+        computed in the working precision on the device."""
+        ka = (torch.as_tensor(self.A_rows, dtype=self.rdtype,
+                              device=self.device)
+              @ torch.as_tensor(np.asarray(k, np.float64),
+                                dtype=self.rdtype, device=self.device))
+        return torch.polar(torch.ones_like(ka), ka)
+
+    def nd_consts(self) -> NdConsts:
+        """The Nédélec kernel's tables, metric and ε·w, μ⁻¹·w planes on
+        the device (built once)."""
+        if self._nd is None:
+            self._nd = NdConsts.from_space(self.space, self._eps_q64,
+                                           self._mu_inv_q64, self.device)
+        return self._nd
+
+    def _gather_stacked(self, u, ph):
+        """(R, 3, N₁, N₂, N₃) → the Nédélec kernel's element-major
+        (R·E, 3·p·l²), l = p + 1: per component the closed axes gathered
+        with their wrap phase (l values each), the open axis reshaped (p
+        values), each element-row's dofs contiguous."""
+        sp = self.space
+        n = tuple(sp.grid.shape)
+        R, nc = u.shape[0], sp.p * (sp.p + 1) ** 2
+        out = torch.empty((R * int(np.prod(n)), 3 * nc), dtype=u.dtype,
+                          device=u.device)
+        for c, ext in enumerate(comp_shapes(sp.p)):
+            g = u[:, c]
+            for i in range(3):
+                ax = 2 * i
+                if i == c:
+                    s = g.shape
+                    g = g.reshape(*s[:ax + 1], n[i], sp.p, *s[ax + 2:])
+                else:
+                    g = dtensor.gather_axis(g, ax, n[i], sp.p, ph[i])
+            out[:, c * nc:(c + 1) * nc].view((R,) + n + ext).copy_(
+                g.permute(0, 1, 3, 5, 2, 4, 6))
+        return out
+
+    def _scatter_stacked(self, r, ph):
+        """Adjoint of :meth:`_gather_stacked`: (R·E, 3·p·l²) →
+        (R, 3, N₁, N₂, N₃)."""
+        sp = self.space
+        n = tuple(sp.grid.shape)
+        R, nc = r.shape[0] // int(np.prod(n)), sp.p * (sp.p + 1) ** 2
+        outs = []
+        for c, ext in enumerate(comp_shapes(sp.p)):
+            g = r[:, c * nc:(c + 1) * nc].view((R,) + n + ext).permute(
+                0, 1, 4, 2, 5, 3, 6)
+            for i in reversed(range(3)):
+                ax = 2 * i
+                if i == c:
+                    s = g.shape
+                    g = g.reshape(*s[:ax + 1], n[i] * sp.p, *s[ax + 3:])
+                else:
+                    g = dtensor.scatter_add_axis(g, ax, n[i], sp.p, ph[i])
+            outs.append(g)
+        return torch.stack(outs, dim=1)
+
+    def _apply_nd(self, u, k, ph, want):
+        """Gather → element-major → the Nédélec kernel → scatter; returns
+        the wanted outputs ("AM": (A u, M u))."""
+        if ph is None:
+            ph = self.phases(k)
+        ue = self._gather_stacked(u.to(self.dtype), ph)
+        outs = nedelec_apply(ue, self.nd_consts(), want)
+        return tuple(self._scatter_stacked(t, ph)
+                     for t in outs if t is not None)
+
+    def apply_A(self, u: torch.Tensor, k=None, *, ph=None) -> torch.Tensor:
+        """A(k) u for a block u (rows, 3, N₁, N₂, N₃); pass ``k`` or the
+        precomputed phases ``ph``."""
+        return self._apply_nd(u, k, ph, "A")[0]
+
+    def apply_M(self, u: torch.Tensor, k=None, *, ph=None) -> torch.Tensor:
+        """M u (the mass wraps with the phases too)."""
+        return self._apply_nd(u, k, ph, "M")[0]
+
+    def apply_AM(self, u: torch.Tensor, k=None, *, ph=None):
+        """(A(k) u, M u) in one pass of the fused element kernel."""
+        return self._apply_nd(u, k, ph, "AM")
+
+    def apply_Gk(self, phi: torch.Tensor, k=None, *, ph=None
+                 ) -> torch.Tensor:
+        """∇φ: quasi-periodic H1 block (rows, N₁, N₂, N₃) → ND block
+        (rows, 3, N₁, N₂, N₃) (exact: ∇ H1_qp ⊂ ND_qp)."""
+        sp = self.space
+        if ph is None:
+            ph = self.phases(k)
+        phi = phi.to(self.dtype)
+        Dn = torch.as_tensor(sp.Dnode, dtype=self.dtype, device=phi.device)
+        out = []
+        for c in range(3):
+            g = dtensor.gather_axis(phi, c, sp.grid.shape[c], sp.p, ph[c])
+            d = torch.movedim(torch.tensordot(Dn, g, dims=([1], [c + 2])),
+                              0, c + 2)
+            s = d.shape
+            out.append(d.reshape(*s[:c + 1], sp.grid.shape[c] * sp.p,
+                                 *s[c + 3:]))
+        return torch.stack(out, dim=1)
+
+    def apply_GkH(self, u: torch.Tensor, k=None, *, ph=None
+                  ) -> torch.Tensor:
+        """Adjoint of :meth:`apply_Gk`: (rows, 3, N₁, N₂, N₃) →
+        (rows, N₁, N₂, N₃)."""
+        sp = self.space
+        if ph is None:
+            ph = self.phases(k)
+        u = u.to(self.dtype)
+        Dn = torch.as_tensor(sp.Dnode, dtype=self.dtype, device=u.device)
+        acc = 0.0
+        for c in range(3):
+            uc = u[:, c]
+            s = uc.shape
+            r = uc.reshape(*s[:c + 1], sp.grid.shape[c], sp.p, *s[c + 2:])
+            d = torch.movedim(torch.tensordot(Dn, r, dims=([0], [c + 2])),
+                              0, c + 2)
+            acc = acc + dtensor.scatter_add_axis(d, c, sp.grid.shape[c],
+                                                 sp.p, ph[c])
+        return acc
+
     # -- stencils (twisted-DFT block factorization) ---------------------------
 
     def _coef_elem_invariant(self) -> bool:
@@ -212,29 +390,39 @@ class BlochCurlCurl:
         return True
 
     def fastdiag(self):
-        """FastDiag with the "A" and "M" stencils. Constant coefficients
-        are probed on the shrunken same-Jacobian twin grid
+        """FastDiag with the "A" and "M" stencils. Exact when the
+        coefficients are element-translation-invariant; otherwise built
+        from the MEAN-coefficient twin, a spectrally equivalent
+        (contrast-bounded) preconditioner. Constant coefficients (both
+        cases) are probed on the shrunken same-Jacobian twin grid
         (``PeriodicGrid.stencil_twin``: identical stencils at O((3/n)³)
         of the probing cost); element-invariant callables keep the
         production grid. Host setup, cached in memory and on disk."""
         if not hasattr(self, "_fd"):
             from bravais_tpu_torch.operators.fastdiag import FastDiag
-            if not self._coef_elem_invariant():
-                raise ValueError("the spectral engine needs element-"
-                                 "translation-invariant coefficients")
             sp = self.space
             shrink = (all(n >= 3 for n in sp.grid.shape)
                       and any(n > 3 for n in sp.grid.shape))
-            if (shrink and not callable(self._eps_fn)
-                    and not callable(self._mu_inv_fn)
-                    and np.ndim(self._eps_fn) == 0
-                    and np.ndim(self._mu_inv_fn) == 0):
-                twin = BlochCurlCurl(
-                    NedelecSpace.make(sp.grid.stencil_twin(), sp.p, sp.q),
-                    eps=float(self._eps_fn), mu_inv=float(self._mu_inv_fn),
-                    dtype=self.dtype, device=self.device)
+            if self._coef_elem_invariant():
+                if (shrink and not callable(self._eps_fn)
+                        and not callable(self._mu_inv_fn)
+                        and np.ndim(self._eps_fn) == 0
+                        and np.ndim(self._mu_inv_fn) == 0):
+                    twin = BlochCurlCurl(
+                        NedelecSpace.make(sp.grid.stencil_twin(), sp.p,
+                                          sp.q),
+                        eps=float(self._eps_fn),
+                        mu_inv=float(self._mu_inv_fn),
+                        dtype=self.dtype, device=self.device)
+                else:
+                    twin = self
             else:
-                twin = self
+                tsp = (NedelecSpace.make(sp.grid.stencil_twin(), sp.p, sp.q)
+                       if shrink else sp)
+                twin = BlochCurlCurl(
+                    tsp, eps=float(np.mean(self._eps_q64)),
+                    mu_inv=float(np.mean(self._mu_inv_q64)),
+                    dtype=self.dtype, device=self.device)
             k0 = np.zeros(3)
             fd = FastDiag(sp.grid.shape, sp.p, 3, self.A_rows,
                           device=self.device, dtype=self.dtype)
@@ -248,6 +436,34 @@ class BlochCurlCurl:
             self._fd = fd
             self._fd_twin = twin
         return self._fd
+
+    def fastdiag_L(self):
+        """Scalar FastDiag with the deflation-Laplacian stencil "L"
+        (L = Gᴴ M_ε G ≡ QPLaplace(α=ε) at matching quadrature; the mean-ε
+        twin for varying ε). Constant ε is probed on the shrunken twin
+        grid. Host setup, cached in memory and on disk."""
+        if not hasattr(self, "_fdL"):
+            from bravais_tpu_torch.operators.fastdiag import FastDiag
+            from bravais_tpu_torch.operators.qplaplace import QPLaplace
+            eps = (self._eps_fn if self._coef_elem_invariant()
+                   else float(np.mean(self._eps_q64)))
+            sp = self.h1
+            if (all(n >= 3 for n in sp.grid.shape)
+                    and any(n > 3 for n in sp.grid.shape)
+                    and not callable(eps) and np.ndim(eps) == 0):
+                sp = H1Space.make(sp.grid.stencil_twin(), sp.p, sp.q)
+            qpl = QPLaplace(sp, alpha=eps, dtype=self.dtype,
+                            device=self.device)
+            fd = FastDiag(self.h1.grid.shape, self.h1.p, 1, self.A_rows,
+                          device=self.device, dtype=self.dtype)
+            k0 = np.zeros(3)
+            fd.add_stencil(
+                "L", lambda u: qpl.apply_A_np(u, k0),
+                cache_key=("ccL", self.h1.q,
+                           np.asarray(qpl._alpha_q64).tobytes()),
+                extract_shape=sp.grid.shape)
+            self._fdL = fd
+        return self._fdL
 
     def fastdiag_G(self):
         """The fastdiag bundle with the rectangular discrete-gradient
@@ -268,13 +484,19 @@ class BlochCurlCurl:
         return fd
 
     def set_fastdiag(self, fd) -> None:
-        """Use a prebuilt FastDiag holding "A", "M" and "G" (e.g. one
-        carried across from the reference by
-        ``convert.fastdiag_from_reference``) instead of extracting."""
-        missing = {"A", "M", "G"} - set(fd.stencils)
+        """Use a prebuilt FastDiag holding "A" and "M" (and, for the
+        spectral engine, "G"; e.g. one carried across from the reference
+        by ``convert``) instead of extracting."""
+        missing = {"A", "M"} - set(fd.stencils)
         if missing:
             raise ValueError(f"FastDiag lacks stencils {sorted(missing)}")
         self._fd = fd
+
+    def set_fastdiag_L(self, fd) -> None:
+        """Use a prebuilt scalar FastDiag holding "L"."""
+        if "L" not in fd.stencils:
+            raise ValueError("FastDiag lacks the stencil 'L'")
+        self._fdL = fd
 
     def default_fd_shift(self) -> float:
         """Spectral shift s of the (A + sM)⁻¹ preconditioner: the band
@@ -296,6 +518,125 @@ class BlochCurlCurl:
         vals = sorted(v for v in vals[:m] for _ in (0, 1))[:m]
         lam_m = vals[-1] / max(float(np.mean(self._eps_q64)), 1e-30)
         return max(2.5 * lam_m, 2.0 * self.default_fd_shift())
+
+    # -- field engine: preconditioner, projector, solve ---------------------
+
+    def fd_precond(self, k):
+        """Outer LOBPCG preconditioner R ↦ (A + sM)⁻¹ R, s the band scale
+        ``default_fd_shift``, through the block factorization ("lu": a
+        batched inverse of the (B, D, D) blocks of the exact, or
+        mean-twin, shifted operator), on blocks of fields."""
+        return self.fastdiag().solver(
+            [("A", 1.0), ("M", self.default_fd_shift())], k)
+
+    def qp_L(self):
+        """The quasi-periodic ε-Laplacian TWIN of L = Gᴴ M_ε G:
+        QPLaplace(h1, α=ε) applies exactly L (discrete de Rham exactness,
+        same quadrature), as one H1 element kernel instead of the
+        three-operator chain."""
+        if not hasattr(self, "_qp_L"):
+            from bravais_tpu_torch.operators.qplaplace import QPLaplace
+            self._qp_L = QPLaplace(self.h1, alpha=self._eps_fn,
+                                   dtype=self.dtype, device=self.device)
+        return self._qp_L
+
+    def apply_Lk(self, phi: torch.Tensor, k=None, *, ph=None
+                 ) -> torch.Tensor:
+        """L φ = Gᴴ M_ε G φ on an H1 block (rows, N₁, N₂, N₃), through
+        :meth:`qp_L` (the h1 kernel at k = 0, phases in the gather)."""
+        return self.qp_L().apply_A(phi, k, ph=ph)
+
+    def cheby_bounds(self) -> tuple:
+        """Spectrum bounds of the mean-twin-preconditioned deflation
+        Laplacian: L = GᴴM_εG and L̃ = ε̄·GᴴM₁G weight the same gradient
+        quadrature, so the Rayleigh quotient lies in
+        [min ε/ε̄, max ε/ε̄]."""
+        e = np.asarray(self._eps_q64, np.float64)
+        ebar = float(np.mean(e))
+        return float(e.min()) / ebar, float(e.max()) / ebar
+
+    def cheby_steps(self) -> int:
+        """Chebyshev steps for ~``CHEBY_TARGET`` kernel contraction per
+        application: ⌈ln(2/target)/ln(1/ρ)⌉, ρ = (√κ−1)/(√κ+1), at
+        least 4."""
+        a, b = self.cheby_bounds()
+        kappa = b / max(a, 1e-12)
+        sq = np.sqrt(max(kappa, 1.0 + 1e-12))
+        rho = (sq - 1.0) / (sq + 1.0)
+        if rho <= 0.0:
+            return 4
+        return int(max(4, np.ceil(np.log(2.0 / CHEBY_TARGET)
+                                  / np.log(1.0 / rho))))
+
+    def gradient_component_cheby(self, u: torch.Tensor, k=None, *,
+                                 ph=None, lsolve=None) -> torch.Tensor:
+        """P u ≈ G L⁻¹ Gᴴ M u by preconditioned Chebyshev on the true
+        L = GᴴM_εG with the mean-ε fast-diagonal solve as preconditioner:
+        a fixed polynomial that contracts the kernel component at any
+        contrast and whose output lies in range(G), so it only ever moves
+        the gradient component. ``u``: block (rows, 3, N₁, N₂, N₃);
+        ``lsolve``: the mean-ε L-twin solver at k (built if not given)."""
+        a, b = self.cheby_bounds()
+        if ph is None:
+            ph = self.phases(k)
+        if lsolve is None:
+            lsolve = self.fastdiag_L().solver([("L", 1.0)], k,
+                                              method="eigh")
+        rhs = self.apply_GkH(self.apply_M(u, ph=ph), ph=ph)
+        theta = 0.5 * (b + a)
+        delta = max(0.5 * (b - a), 1e-12 * theta)
+        sigma = theta / delta
+        rho = 1.0 / sigma
+        d = lsolve(rhs) * (1.0 / theta)
+        x = torch.zeros_like(rhs)
+        r = rhs
+        for _ in range(self.cheby_steps() - 1):
+            x = x + d
+            r = r - self.apply_Lk(d, ph=ph)
+            rho_new = 1.0 / (2.0 * sigma - rho)
+            d = (rho_new * rho) * d + (2.0 * rho_new / delta) * lsolve(r)
+            rho = rho_new
+        return self.apply_Gk(x + d, ph=ph)
+
+    def make_solve_fn(self) -> Callable:
+        """The field-engine solve (the reference's
+        ``make_solve_fn(deflation="project-cheby", precond="fastdiag")``):
+        LOBPCG on (A(k), M) with the per-iteration X/P projection of the
+        preconditioned-Chebyshev gradient projector and the (A + sM)⁻¹
+        fast-diagonal preconditioner followed by that projection. A and M
+        come together from the fused Nédélec kernel (the ``AM`` hook). The
+        reference's other deflations and preconditioners are not ported.
+
+        Returns ``solve(X0, k, nev, tol, maxiter)`` → (LobpcgResult with
+        eigenvector block (m, 3, N₁, N₂, N₃), None)."""
+        from bravais_tpu_torch.eigen.lobpcg import PROD_RR_TOL, lobpcg
+
+        sfloor = (SCALE_FLOOR_F32 if self.dtype == torch.complex64
+                  else SCALE_FLOOR)
+        self.fastdiag()       # host stencil extraction (A, M, L), cached
+        self.fastdiag_L()
+
+        def solve(X0, k, nev, tol, maxiter):
+            ph = self.phases(k)
+            lpc = self.fastdiag_L().solver([("L", 1.0)], k, method="eigh")
+            pc = self.fd_precond(k)
+
+            def proj(u):
+                return self.gradient_component_cheby(u, ph=ph, lsolve=lpc)
+
+            def pcond(R):
+                z = pc(R)
+                return z - proj(z)
+
+            X0 = X0.to(self.dtype)
+            return lobpcg(lambda x: self.apply_A(x, ph=ph),
+                          lambda x: self.apply_M(x, ph=ph),
+                          X0 - proj(X0), nev, maxiter=maxiter, tol=tol,
+                          precond=pcond, scale_floor=sfloor,
+                          AM=lambda x: self.apply_AM(x, ph=ph),
+                          kernel_project=proj, rr_tol=PROD_RR_TOL), None
+
+        return solve
 
     # -- host f64 refine ------------------------------------------------------
 
@@ -387,6 +728,10 @@ class BlochCurlCurl:
         """
         from bravais_tpu_torch.eigen.lobpcg import PROD_RR_TOL, lobpcg
 
+        if not self._coef_elem_invariant():
+            raise ValueError("the spectral engine needs element-"
+                             "translation-invariant coefficients; use "
+                             "make_solve_fn (the field engine)")
         sfloor = (SCALE_FLOOR_F32 if self.dtype == torch.complex64
                   else SCALE_FLOOR)
         s_ = self.default_fd_shift()

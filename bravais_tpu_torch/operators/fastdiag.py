@@ -18,12 +18,11 @@ Three halves:
   disk cache (``_disk_cached``, ``extract_stencil``,
   ``extract_stencil_rect``, ``FastDiag.add_stencil``);
 * device (torch complex64): ``blocks``, ``to_blocks``, ``from_blocks``
-  on the FastDiag's ``device``;
+  and the block solver ``solver`` on the FastDiag's ``device``;
 * host refine helpers (f64): ``blocks_np``, ``blocks_np_multi``,
-  ``candidate_blocks``.
+  ``candidate_blocks`` and the spectral block solver ``solver_np``.
 
-The device solvers (``solver``, ``matvec``) and the host ``solver_np``
-belong to the field engine and are not ported yet.
+``matvec`` (a test cross-check of the reference) is not ported.
 """
 
 from __future__ import annotations
@@ -288,6 +287,46 @@ class FastDiag:
                               0, ax)
         return u.reshape((L,) + self.field_shape)
 
+    def solver(self, terms: Sequence[Tuple[str, float]], k,
+               method: str = "lu") -> Callable:
+        """u ↦ (Σ coeff·Op)⁻¹ u on blocks of fields (rows, *field_shape):
+        twisted DFT → batched block inverse-matvec → inverse DFT. Build
+        once per k, outside the LOBPCG loop.
+
+        ``method``: "lu" — the batched dense inverse (``torch.linalg.inv``;
+        right for the well-conditioned shifted (A + sM) preconditioner);
+        "eigh" — the batched Jacobi eigendecomposition (``jacobi_eigh``,
+        on CUDA the hand-written kernel) with a spectral pseudo-inverse
+        (eigenvalues ≤ 0 dropped): the deflation Laplacian's
+        near-null block near Γ then errs only along eigendirections, and
+        exact Γ gets a clean pseudo-inverse."""
+        F = self._fwd_mats(self._theta(k))
+        T = self.blocks(terms, k)
+        if method == "eigh":
+            from bravais_tpu_torch.eigen.jacobi_eigh import jacobi_eigh
+            w, V = jacobi_eigh(T)
+            good = w > 0.0
+            winv = torch.where(good, 1.0 / torch.where(good, w, 1.0), 0.0)
+            winv = winv.to(self.dtype)[..., None]
+            VH = V.mH
+
+            def inv_cols(vc):
+                return V @ (winv * (VH @ vc))
+        elif method == "lu":
+            Tinv = torch.linalg.inv(T)
+
+            def inv_cols(vc):
+                return Tinv @ vc
+        else:
+            raise ValueError(f"method must be 'lu' or 'eigh', got {method!r}")
+
+        def solve(u):
+            v = self.to_blocks(u, F)                       # (L, B, D)
+            x = inv_cols(v.permute(1, 2, 0)).permute(2, 0, 1)
+            return self.from_blocks(x, F).reshape(u.shape)
+
+        return solve
+
     # -- host (NumPy, f64) refine helpers ---------------------------------
 
     def _phase_weights_np(self, k: np.ndarray):
@@ -362,3 +401,51 @@ class FastDiag:
                 if sup[r][b] > CAND_TAU * mx:
                     cand.add(int(b))
         return np.asarray(sorted(cand), np.int64)
+
+    def solver_np(self, terms: Sequence[Tuple[str, float]],
+                  k: np.ndarray) -> Callable:
+        """f64 spectral block solver on the host (pseudo-inverse with the
+        relative eigenvalue cutoff 1e-12). The eigendecomposition is
+        done once here; the returned closure solves a field or a block
+        of fields with a leading axis (the refine's gradient handling)."""
+        d, p = self.d, self.p
+        theta, w = self._phase_weights_np(k)
+        F = [np.exp(-1j * th[:, None] * np.arange(n)[None, :])
+             for th, n in zip(theta, self.shape)]
+        S = sum(float(c) * self.stencils[nm] for nm, c in terms)
+        T = np.einsum("sb,sij->bij", w, S)
+        lam, V = np.linalg.eigh(0.5 * (T + np.conj(np.swapaxes(T, 1, 2))))
+        good = lam > 1e-12 * lam.max(axis=-1, keepdims=True)
+        linv = np.where(good, 1.0 / np.where(good, lam, 1.0), 0.0)
+
+        base_ndim = self.d + (1 if self.ncomp > 1 else 0)
+
+        def solve(u):
+            u = np.asarray(u, np.complex128)
+            if u.ndim == base_ndim + 1:  # leading block axis
+                return np.stack([solve(x) for x in u])
+            x = u.reshape(
+                (self.ncomp,) + tuple(y for n in self.shape
+                                      for y in (n, p)))
+            for i in range(d):
+                ax = 1 + 2 * i
+                x = np.moveaxis(np.tensordot(F[i], x, axes=((1,), (ax,))),
+                                0, ax)
+            perm = [1 + 2 * i for i in range(d)] + [0] + \
+                [2 + 2 * i for i in range(d)]
+            v = x.transpose(perm).reshape(self.nblocks, self.D)
+            c = np.einsum("bij,bj->bi", np.conj(np.swapaxes(V, 1, 2)), v)
+            v = np.einsum("bij,bj->bi", V, linv * c)
+            v = v.reshape(tuple(self.shape) + (self.ncomp,) + (p,) * d)
+            perm2 = [d] + [y for i in range(d) for y in (i, d + 1 + i)]
+            x = v.transpose(perm2)
+            for i in range(d):
+                ax = 1 + 2 * i
+                Fi_inv = np.conj(F[i]).T / self.shape[i]
+                x = np.moveaxis(
+                    np.tensordot(Fi_inv, x, axes=((1,), (ax,))), 0, ax)
+            x = x.reshape((self.ncomp,) + tuple(n * p for n in self.shape))
+            out = x[0] if self.ncomp == 1 else x
+            return out.reshape(np.asarray(u).shape)
+
+        return solve

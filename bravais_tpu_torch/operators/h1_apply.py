@@ -1,0 +1,181 @@
+"""Fused Bloch H1 stiffness and mass element apply: the wrapper of the
+hand-written CUDA kernel ``csrc/h1_apply.cu`` and its plain torch version.
+
+Replaces ``bravais_tpu/operators/pallas/h1_apply.py::helmholtz_block_apply``.
+Per element and block row: y = (∇+ik)ᴴα(∇+ik)u (value and gradient by
+sum-factorized contractions, the Jinvᵀ metric and the ik shift, α·w,
+transposed contractions) and m = β-mass; d = 2 or 3.
+
+Layout (element-major, one element-row's dofs contiguous):
+
+* ``ue``: (rows·E, l, ..., l) complex64 (d local axes), row-major over
+  (row, element);
+* ``alpha_w``, ``beta_w``: (E, q, ..., q) float32, α and β times the
+  quadrature weights (which carry |det J|);
+* ``k``: d host floats (a scalar argument of the kernel).
+
+``helmholtz_apply`` dispatches on where ``ue`` lies: a CPU tensor runs
+``helmholtz_apply_plain``; a CUDA tensor launches the kernel or raises.
+``launches`` counts kernel launches (incremented only at the launch).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from bravais_tpu_torch.spaces.tensor import contract, contract_t
+from bravais_tpu_torch.utils import cuda_build
+
+__all__ = ["H1Consts", "helmholtz_apply", "helmholtz_apply_plain",
+           "launches", "work"]
+
+launches = 0
+
+_WANT = {"A": 1, "M": 2, "AM": 3}
+_lib = None
+
+
+class H1Consts:
+    """The kernel's constant inputs on one device: tables (2, q, l)
+    float32 (B, D), the α·w and β·w planes (E, q, ..., q) and the metric
+    Jinvᵀ, Jinv (d × d) as host floats."""
+
+    def __init__(self, B, D, alpha_w, beta_w, JinvT, Jinv, device):
+        tabs = np.stack([np.asarray(B, np.float64), np.asarray(D, np.float64)])
+        self.q, self.l = tabs.shape[1:]
+        self.host_tabs = np.ascontiguousarray(tabs, np.float32)
+        self.tables = torch.as_tensor(self.host_tabs, device=device)
+        self.alpha_w = torch.as_tensor(
+            np.ascontiguousarray(alpha_w, np.float32), device=device)
+        self.beta_w = torch.as_tensor(
+            np.ascontiguousarray(beta_w, np.float32), device=device)
+        self.nelem = self.alpha_w.shape[0]
+        self.d = self.alpha_w.ndim - 1
+        self.JinvT = np.asarray(JinvT, np.float64)
+        self.Jinv = np.asarray(Jinv, np.float64)
+        metric = np.zeros((2, 3, 3))
+        metric[0, :self.d, :self.d] = self.JinvT
+        metric[1, :self.d, :self.d] = self.Jinv
+        self.host_metric = metric.ravel()
+
+    @classmethod
+    def from_space(cls, space, alpha_q64, beta_q64, device) -> "H1Consts":
+        """Tables, metric and α·w, β·w planes of an ``H1Space``
+        (coefficients sampled at its quadrature points, (n₁,q,...))."""
+        sp = space
+        d = sp.dim
+        qshape = tuple(x for n in sp.grid.shape for x in (n, sp.q))
+        wq = np.asarray(sp.quad_weight(), np.float64)
+        perm = [2 * i for i in range(d)] + [2 * i + 1 for i in range(d)]
+
+        def plane(coef_q):
+            full = np.broadcast_to(np.asarray(coef_q, np.float64) * wq, qshape)
+            return full.transpose(perm).reshape((-1,) + (sp.q,) * d)
+
+        return cls(sp.basis.B, sp.basis.D, plane(alpha_q64), plane(beta_q64),
+                   sp.grid.Jinv.T, sp.grid.Jinv, device)
+
+
+def work(nblocks: int, c: H1Consts, k, want: str = "AM"):
+    """(bytes, flops) one call must move and compute: ``ue`` read once,
+    each wanted output written once, the used planes read once; the
+    kernel's contraction multiply-adds (complex × real = 4 flops) and its
+    pointwise terms, skipping the ik terms at k = 0 as the kernel does."""
+    q, l, d = c.q, c.l, c.d
+    wa, wm = "A" in want, "M" in want
+    kz = not np.any(np.asarray(k, np.float64))
+    need_uq = wm or (wa and not kz)
+    fwd = need_uq + d * wa
+    trn = (d + (not kz)) * wa + wm
+    S = sum(q ** (i + 1) * l ** (d - i) for i in range(d))
+    point = q ** d * (wa * (8 * d * d + 12 * d) + 2 * wm)
+    nbytes = (nblocks * l ** d * 8 * (1 + wa + wm)
+              + c.nelem * q ** d * 4 * (wa + wm))
+    return nbytes, nblocks * (4 * (fwd + trn) * S + point)
+
+
+def helmholtz_apply_plain(ue: torch.Tensor, c: H1Consts, k,
+                          want: str = "AM"):
+    """Plain torch version of the kernel: (y, m) with None for the half
+    not in ``want``."""
+    d, E = c.d, c.nelem
+    x = ue.reshape((ue.shape[0] // E, E) + ue.shape[1:])
+    B, D = c.tables.to(ue.device)
+    aw, bw = c.alpha_w.to(ue.device), c.beta_w.to(ue.device)
+    k = [float(v) for v in k]
+    uq = contract(x, [B] * d)
+    y = m = None
+    if "A" in want:
+        g = [contract(x, [D if i == r else B for i in range(d)])
+             for r in range(d)]
+        f = [aw * (sum(float(c.JinvT[r, s]) * g[s] for s in range(d))
+                   + 1j * k[r] * uq) for r in range(d)]
+        y = contract_t(-1j * sum(k[r] * f[r] for r in range(d)), [B] * d)
+        for r in range(d):
+            y = y + contract_t(sum(float(c.Jinv[r, s]) * f[s]
+                                   for s in range(d)),
+                               [D if i == r else B for i in range(d)])
+        y = y.reshape(ue.shape)
+    if "M" in want:
+        m = contract_t(bw * uq, [B] * d).reshape(ue.shape)
+    return y, m
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = cuda_build.load("h1_apply")
+        fn = lib.h1_apply_launch
+        fn.argtypes = ([ctypes.c_void_p] * 7
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _launch(ue: torch.Tensor, c: H1Consts, k, want: str):
+    global launches
+    shape = (c.l,) * c.d
+    if ue.dtype != torch.complex64 or tuple(ue.shape[1:]) != shape \
+            or ue.shape[0] % c.nelem or not ue.is_contiguous():
+        raise ValueError(f"helmholtz_apply takes a contiguous complex64 "
+                         f"(rows·{c.nelem}, {shape}) tensor, got "
+                         f"{ue.dtype} {tuple(ue.shape)}")
+    if c.alpha_w.device != ue.device:
+        raise ValueError(f"coefficients on {c.alpha_w.device}, dofs on "
+                         f"{ue.device}")
+    kv = np.zeros(3)
+    kv[:c.d] = np.asarray(k, np.float64)
+    metric = np.concatenate([c.host_metric, kv]).astype(np.float32)
+    y = torch.empty_like(ue) if "A" in want else None
+    m = torch.empty_like(ue) if "M" in want else None
+    lib = _load()
+    with torch.cuda.device(ue.device):
+        stream = torch.cuda.current_stream(ue.device).cuda_stream
+        err = lib.h1_apply_launch(
+            ue.data_ptr(), c.alpha_w.data_ptr(), c.beta_w.data_ptr(),
+            y.data_ptr() if y is not None else None,
+            m.data_ptr() if m is not None else None,
+            c.host_tabs.ctypes.data, metric.ctypes.data,
+            c.q, c.l, c.d, c.nelem, ue.shape[0], _WANT[want], stream)
+    launches += 1
+    cuda_build.check(err, f"h1_apply launch ({want}, {ue.shape[0]} blocks)")
+    return y, m
+
+
+def helmholtz_apply(ue: torch.Tensor, c: H1Consts, k, want: str = "AM"):
+    """(y, m) = ((∇+ik)ᴴα(∇+ik) u, β-mass u) on element-major dofs
+    ``ue``; the half not in ``want`` ("AM", "A" or "M") is None. CPU
+    tensors run the plain version; CUDA tensors the kernel."""
+    if want not in _WANT:
+        raise ValueError(f"want must be one of {sorted(_WANT)}, got {want!r}")
+    if len(k) != c.d:
+        raise ValueError(f"k has {len(k)} components, the space {c.d}")
+    if ue.device.type == "cpu":
+        return helmholtz_apply_plain(ue, c, k, want)
+    if not ue.is_cuda:
+        raise ValueError(f"helmholtz_apply: no kernel for {ue.device}")
+    return _launch(ue, c, k, want)

@@ -1,0 +1,225 @@
+"""Fused Nédélec curl-curl and ε-mass element apply: the wrapper of the
+hand-written CUDA kernel ``csrc/nd_apply.cu`` and its plain torch
+version.
+
+Replaces ``bravais_tpu/operators/pallas/nd_apply.py::nedelec_block_apply``.
+Per element and block row: y = A_e u (6 derivative contractions, the
+J/detJ·μ⁻¹·w mixing, 6 transposed contractions) and m = M_e u (3 value
+contractions, the Ginv·ε·w mixing, 3 transposed contractions).
+
+Layout (element-major, one element-row's dofs contiguous):
+
+* ``ue``: (rows·E, 3·p·l²) complex64, row-major over (row, element); per
+  element-row the three components one after the other, component c
+  row-major over its extents ``comp_shapes(p)[c]`` (p values on its open
+  axis c, l = p + 1 on the two closed ones);
+* coefficient planes ``muw``, ``epsw``: (E, q, q, q) float32, μ⁻¹ and ε
+  times the quadrature weights.
+
+``nedelec_apply`` dispatches on where ``ue`` lies: a CPU tensor runs
+``nedelec_apply_plain``; a CUDA tensor launches the kernel (built at first
+use by ``utils/cuda_build.py``) or raises. ``launches`` counts kernel
+launches and ``launches_by_mode`` splits them by the halves computed
+("AM", "A", "M"); both are incremented only where the kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from bravais_tpu_torch.spaces.tensor import contract, contract_t
+from bravais_tpu_torch.utils import cuda_build
+
+__all__ = ["NdConsts", "comp_shapes", "nedelec_apply", "nedelec_apply_plain",
+           "launches", "launches_by_mode", "work"]
+
+launches = 0
+launches_by_mode = {"AM": 0, "A": 0, "M": 0}
+
+_WANT = {"A": 1, "M": 2, "AM": 3}
+_CYC = ((0, 1, 2), (1, 2, 0), (2, 0, 1))
+_lib = None
+
+
+def comp_shapes(p: int):
+    """The local extents of the three components of one element: p on
+    the component's own (open) axis, p + 1 on the two closed ones."""
+    return [tuple(p if i == c else p + 1 for i in range(3)) for c in range(3)]
+
+
+class NdConsts:
+    """The kernel's constant inputs on one device: the 1D tables
+    (4, q, l) float32 (Bc, Dc, Bo, Do; the open ones, (q, p), padded with a
+    zero column), the coefficient planes (E, q, q, q) and the affine metric
+    J, Ginv, detJ (signed) as host floats. ``ndof`` = 3·p·l² values per
+    element-row."""
+
+    def __init__(self, Bc, Dc, Bo, Do, muw, epsw, J, Ginv, detJ, device):
+        q, l = np.shape(Bc)
+        tabs = np.stack([np.pad(np.asarray(T, np.float64),
+                                ((0, 0), (0, l - np.shape(T)[1])))
+                         for T in (Bc, Dc, Bo, Do)])
+        self.q, self.l, self.p = q, l, l - 1
+        self.ndof = 3 * self.p * l * l
+        self.host_tabs = np.ascontiguousarray(tabs, np.float32)
+        self.tables = torch.as_tensor(self.host_tabs, device=device)
+        self.muw = torch.as_tensor(np.ascontiguousarray(muw, np.float32),
+                                   device=device)
+        self.epsw = torch.as_tensor(np.ascontiguousarray(epsw, np.float32),
+                                    device=device)
+        self.nelem = self.muw.shape[0]
+        self.J = np.asarray(J, np.float64)
+        self.Ginv = np.asarray(Ginv, np.float64)
+        self.detJ = float(detJ)
+        self.host_metric = np.concatenate(
+            [self.J.ravel(), self.Ginv.ravel(), [1.0 / self.detJ]]
+        ).astype(np.float32)
+
+    @classmethod
+    def from_space(cls, space, eps_q64, mu_inv_q64, device) -> "NdConsts":
+        """Tables, metric and ε·w, μ⁻¹·w planes of a ``NedelecSpace``
+        (coefficients sampled at its quadrature points, (n₁,q,n₂,q,n₃,q))."""
+        sp = space
+        qshape = tuple(x for n in sp.grid.shape for x in (n, sp.q))
+        wq = np.asarray(sp.quad_weight(), np.float64)
+
+        def plane(coef_q):
+            full = np.broadcast_to(np.asarray(coef_q, np.float64) * wq, qshape)
+            return full.transpose(0, 2, 4, 1, 3, 5).reshape(
+                (-1,) + (sp.q,) * 3)
+
+        return cls(sp.closed.B, sp.closed.D, sp.open.B, sp.open.D,
+                   plane(mu_inv_q64), plane(eps_q64), sp.grid.J, sp.grid.Ginv,
+                   np.linalg.det(sp.grid.J), device)
+
+
+def _sumfact(q: int, ext, transpose: bool) -> int:
+    """Multiply-adds of one sum-factorised contraction between local
+    extents ``ext`` and (q, q, q), axis 0 first."""
+    e0, e1, e2 = ext
+    if transpose:
+        return q ** 3 * e0 + q * q * e0 * e1 + q * e0 * e1 * e2
+    return q * e0 * e1 * e2 + q * q * e1 * e2 + q ** 3 * e2
+
+
+def work(nblocks: int, c: NdConsts, want: str = "AM"):
+    """(bytes, flops) one call must move and compute: ``ue`` (its 3·p·l²
+    values per element-row) read once, each wanted output written once,
+    the used coefficient planes read once; the multiply-adds of the
+    sum-factorised contractions over each component's own extents
+    (complex × real = 4 flops; per component one value contraction each
+    way for M, two derivative contractions each way for A) and the
+    pointwise mixing."""
+    q = c.q
+    wa, wm = "A" in want, "M" in want
+    macs = sum((wm + 2 * wa) * (_sumfact(q, ext, False)
+                                + _sumfact(q, ext, True))
+               for ext in comp_shapes(c.p))
+    point = q ** 3 * (90 * wa + 42 * wm)
+    nbytes = (nblocks * c.ndof * 8 * (1 + wa + wm)
+              + c.nelem * q ** 3 * 4 * (wa + wm))
+    return nbytes, nblocks * (4 * macs + point)
+
+
+def _tabs(T, comp, deriv=None):
+    """Tables of component ``comp`` on the three axes: open on axis comp
+    (Bo/Do without their zero column), D on axis ``deriv``."""
+    p = T.shape[2] - 1
+    return [T[2 + int(i == deriv)][:, :p] if i == comp
+            else T[int(i == deriv)] for i in range(3)]
+
+
+def nedelec_apply_plain(ue: torch.Tensor, c: NdConsts, want: str = "AM"):
+    """Plain torch version of the kernel: (y, m) with None for the half
+    not in ``want``."""
+    E, n = c.nelem, c.p * c.l * c.l
+    rows = ue.shape[0] // E
+    x = [ue[:, s * n:(s + 1) * n].reshape((rows, E) + ext)
+         for s, ext in enumerate(comp_shapes(c.p))]
+    T = c.tables.to(ue.device)
+    muw, epsw = c.muw.to(ue.device), c.epsw.to(ue.device)
+
+    def flat(parts):
+        return torch.cat([t.reshape(ue.shape[0], n) for t in parts], dim=1)
+
+    y = m = None
+    if "M" in want:
+        uh = [contract(x[s], _tabs(T, s)) for s in range(3)]
+        m = flat([contract_t(epsw * sum(float(c.Ginv[r, s]) * uh[s]
+                                        for s in range(3)), _tabs(T, r))
+                  for r in range(3)])
+    if "A" in want:
+        D = {(s, t): contract(x[t], _tabs(T, t, s))
+             for t in range(3) for s in range(3) if s != t}
+        ch = [D[(s, t)] - D[(t, s)] for _, s, t in _CYC]
+        f = [muw * sum(float(c.J[r, s]) * ch[s] for s in range(3)) / c.detJ
+             for r in range(3)]
+        cf = [sum(float(c.J[s, r]) * f[s] for s in range(3)) / c.detJ
+              for r in range(3)]
+        yc = []
+        for comp in range(3):
+            acc = 0.0
+            for s in range(3):
+                if s != comp:
+                    r = 3 - s - comp
+                    sign = 1.0 if (r + 1) % 3 == s else -1.0
+                    acc = acc + sign * contract_t(cf[r], _tabs(T, comp, s))
+            yc.append(acc)
+        y = flat(yc)
+    return y, m
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = cuda_build.load("nd_apply")
+        fn = lib.nd_apply_launch
+        fn.argtypes = ([ctypes.c_void_p] * 7
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _launch(ue: torch.Tensor, c: NdConsts, want: str):
+    global launches
+    shape = (c.ndof,)
+    if ue.dtype != torch.complex64 or tuple(ue.shape[1:]) != shape \
+            or ue.shape[0] % c.nelem or not ue.is_contiguous():
+        raise ValueError(f"nedelec_apply takes a contiguous complex64 "
+                         f"(rows·{c.nelem}, {shape}) tensor, got "
+                         f"{ue.dtype} {tuple(ue.shape)}")
+    if c.muw.device != ue.device:
+        raise ValueError(f"coefficients on {c.muw.device}, dofs on "
+                         f"{ue.device}")
+    y = torch.empty_like(ue) if "A" in want else None
+    m = torch.empty_like(ue) if "M" in want else None
+    lib = _load()
+    with torch.cuda.device(ue.device):
+        stream = torch.cuda.current_stream(ue.device).cuda_stream
+        err = lib.nd_apply_launch(
+            ue.data_ptr(), c.muw.data_ptr(), c.epsw.data_ptr(),
+            y.data_ptr() if y is not None else None,
+            m.data_ptr() if m is not None else None,
+            c.host_tabs.ctypes.data, c.host_metric.ctypes.data,
+            c.q, c.l, c.nelem, ue.shape[0], _WANT[want], stream)
+    launches += 1
+    launches_by_mode[want] += 1
+    cuda_build.check(err, f"nd_apply launch ({want}, {ue.shape[0]} blocks)")
+    return y, m
+
+
+def nedelec_apply(ue: torch.Tensor, c: NdConsts, want: str = "AM"):
+    """(y, m) = (A_e u, M_e u) on element-major dofs ``ue``; the half not
+    in ``want`` ("AM", "A" or "M") is None. CPU tensors run the plain
+    version; CUDA tensors the kernel."""
+    if want not in _WANT:
+        raise ValueError(f"want must be one of {sorted(_WANT)}, got {want!r}")
+    if ue.device.type == "cpu":
+        return nedelec_apply_plain(ue, c, want)
+    if not ue.is_cuda:
+        raise ValueError(f"nedelec_apply: no kernel for {ue.device}")
+    return _launch(ue, c, want)

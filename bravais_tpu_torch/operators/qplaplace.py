@@ -1,0 +1,102 @@
+"""Quasi-periodic scalar Laplacian  Λ φ = −∇·(α ∇φ)  on H1_qp.
+
+Port of ``bravais_tpu/operators/qplaplace.py``. The deflation operator
+of the Maxwell field solve, L = Gᴴ M_ε G (``BlochCurlCurl.apply_Lk``),
+equals this operator EXACTLY at matching quadrature:
+⟨Gφ, M_ε Gψ⟩ = ∫ ε ∇φ·conj(∇ψ). k enters only through the wrap phases
+e^{i k·a_i} of the element gather/scatter (torch); the element apply is
+the stiffness half of the H1 kernel at k = 0 (``operators/h1_apply.py``,
+on CUDA the hand-written ``csrc/h1_apply.cu``). The reference's β-mass
+shift is not ported: no caller of the port sets it.
+
+The device apply takes blocks (rows, N₁, ..., N_d); ``apply_A_np`` is the
+f64 host twin (phases at k = 0) the stencil extraction probes. The
+operator diagonal (the reference's Jacobi/GMG smoother input) is not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from bravais_tpu_torch.operators.coefficients import (CoefLike,
+                                                      eval_coefficient)
+from bravais_tpu_torch.operators.h1_apply import H1Consts, helmholtz_apply
+from bravais_tpu_torch.spaces import tensor
+from bravais_tpu_torch.spaces import tensor_np
+from bravais_tpu_torch.spaces.h1 import H1Space
+
+__all__ = ["QPLaplace"]
+
+
+class QPLaplace:
+    """Λ φ = −∇·(α∇φ) on ``space``, device work on ``device`` in
+    ``dtype``."""
+
+    def __init__(self, space: H1Space, alpha: CoefLike = 1.0,
+                 dtype=torch.complex64, device="cuda"):
+        self.space = space
+        self.dtype = dtype
+        self.rdtype = dtype.to_real()
+        self.device = torch.device(device)
+        self._alpha_q64 = eval_coefficient(alpha, space.qpoints_phys())
+        self.A_rows = space.grid.lattice.A.astype(np.float64)
+        self._consts = None
+
+    def consts(self) -> H1Consts:
+        """The h1 kernel's tables, metric and α·w plane on the device
+        (built once; β = 1 fills the mass plane this operator does not
+        use)."""
+        if self._consts is None:
+            self._consts = H1Consts.from_space(
+                self.space, self._alpha_q64, 1.0, self.device)
+        return self._consts
+
+    def phases(self, k) -> torch.Tensor:
+        """φ_i = e^{i k·a_i}, computed in the working precision."""
+        ka = (torch.as_tensor(self.A_rows, dtype=self.rdtype,
+                              device=self.device)
+              @ torch.as_tensor(np.asarray(k, np.float64),
+                                dtype=self.rdtype, device=self.device))
+        return torch.polar(torch.ones_like(ka), ka)
+
+    def apply_A(self, u: torch.Tensor, k=None, *, ph=None) -> torch.Tensor:
+        """Λ(k) u for a block u (rows, N₁, ..., N_d); pass ``k`` or the
+        precomputed phases ``ph``."""
+        sp = self.space
+        d = sp.dim
+        n = sp.grid.shape
+        if ph is None:
+            ph = self.phases(k)
+        R = u.shape[0]
+        l = sp.p + 1
+        ue = tensor.gather_qp(u.to(self.dtype), n, (sp.p,) * d, (True,) * d,
+                              ph)                  # (R, n₁, l, n₂, l, ...)
+        perm = [0] + [1 + 2 * i for i in range(d)] + [2 + 2 * i
+                                                      for i in range(d)]
+        ue = ue.permute(perm).reshape((-1,) + (l,) * d).contiguous()
+        y, _ = helmholtz_apply(ue, self.consts(), [0.0] * d, "A")
+        inv = [0] + [x for i in range(d) for x in (1 + i, 1 + d + i)]
+        y = y.reshape((R,) + tuple(n) + (l,) * d).permute(inv)
+        return tensor.scatter_add_qp(y, n, (sp.p,) * d, (True,) * d, ph)
+
+    def apply_A_np(self, u, k=None):
+        """f64 host twin (phases at k = 0, as in the reference; the
+        stencil extraction probes it at k = 0)."""
+        sp = self.space
+        d = sp.dim
+        u = np.asarray(u, np.complex128)
+        B64, D64 = sp.basis.B, sp.basis.D
+        tabs = [[D64 if r == i else B64 for i in range(d)]
+                for r in range(d)]
+        args = (sp.grid.shape, (sp.p,) * d, (True,) * d)
+        ue = tensor_np.gather_np(u, *args)
+        ghat = np.stack([tensor_np.contract_np(ue, tabs[r])
+                         for r in range(d)])
+        z = (self._alpha_q64 * sp.quad_weight()) * np.einsum(
+            "rs,s...->r...", sp.grid.Ginv, ghat)
+        y = 0.0
+        for r in range(d):
+            y = y + tensor_np.contract_t_np(z[r], tabs[r])
+        return tensor_np.scatter_add_np(y, *args)

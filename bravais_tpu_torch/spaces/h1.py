@@ -6,8 +6,8 @@ constrained/slave dofs. Reference equivalent: MFEM ``H1_FECollection`` +
 periodic ``FiniteElementSpace`` (SURVEY.md §2.2 #8).
 
 Port of ``bravais_tpu/spaces/h1.py``: the host metadata, tables and
-quadrature, copied verbatim; the device element gather/scatter is
-not ported yet (it belongs to the field engine).
+quadrature, copied verbatim; the device element gather/scatter is in
+``spaces/tensor.py``.
 """
 
 from __future__ import annotations

@@ -16,8 +16,8 @@ nodal coefficients to the open coefficients of the exact derivative
 interpolates closed (degree p) values onto the open nodes.
 
 Port of ``bravais_tpu/spaces/nedelec.py``: the host metadata, tables and
-quadrature, copied verbatim; the device element gather/scatter is
-not ported yet (it belongs to the field engine).
+quadrature, copied verbatim; the device element gather/scatter is in
+``spaces/tensor.py``.
 """
 
 from __future__ import annotations

@@ -3,8 +3,8 @@
 The ``*_np`` half of ``bravais_tpu/spaces/tensor.py`` (lines 110-146 and
 198-225), copied verbatim: the element gather / scatter-add and the
 sum-factorized 1D contractions the f64 host twins and the stencil
-extraction run on. The device half (gathers with Bloch phases on
-tensors) belongs to the field engine and is not ported yet.
+extraction run on. The device half (torch, with a leading block-row
+axis) is ``spaces/tensor.py``.
 
 Layout convention (as in the reference):
 

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's FCC headline sweep on one NVIDIA GPU.
+"""Where the time goes in the port's two sweeps on one NVIDIA GPU: the
+FCC headline (spectral engine) and config 3 (the dielectric field
+engine), both as ``chip_smoke.py`` configures them.
 
     python3 chip_profile.py      # needs one card; no arguments
 
-Runs the headline configuration of ``chip_smoke.py`` (one cold pass
-first) and prints, one line each:
+For each sweep (one cold pass first) it prints, one line each:
 
 1. the pass: wall, host refine, device solve split into per-k setup and
    LOBPCG (CUDA-synchronised host clock), time per LOBPCG iteration, the
    rate over all nk k-points and the steady rate over k-points 2..nk
    (the rate ``bench.py`` reports for its warm mode);
-2. the per-k setup pieces of the spectral solve at one k (CUDA events,
-   median of 20);
+2. the per-k setup pieces at one k (CUDA events, median of 20) and, for
+   the field engine, the pieces of one LOBPCG iteration: the
+   preconditioner, the fused (A, M) apply, the Chebyshev gradient
+   projector and the mass apply at their row counts;
 3. a ``torch.profiler`` trace of the device solve of two k-points: the
    device operations (kernels, copies, fills), the device's busy time
    and idle share of the traced window and of the same solves run
@@ -22,7 +25,6 @@ Every figure is measured in this run; the card's name and power limit
 come first.
 """
 
-import statistics
 import subprocess
 import sys
 import time
@@ -31,8 +33,10 @@ import chip_smoke  # sets the host BLAS thread cap before numpy loads
 
 TRACE_K = (4, 5)   # k-points of the traced window (steady warm starts)
 # Device operations grouped by a substring of their name, first match wins.
-GROUPS = (("Jacobi kernel", "jacobi_eigh_kernel"), ("GEMM", "gemm"),
-          ("triangular solve", "trsm"), ("Cholesky", "potrf"),
+GROUPS = (("Jacobi kernel", "jacobi_eigh_kernel"),
+          ("nd kernel", "nd_apply_kernel"), ("h1 kernel", "h1_apply_kernel"),
+          ("GEMM", "gemm"), ("triangular solve", "trsm"),
+          ("Cholesky", "potrf"), ("LU and inverse", "getr"),
           ("copies", "copy"), ("copies", "Cat"), ("copies", "Memcpy"))
 
 
@@ -50,25 +54,31 @@ def timed(fn, into):
     return w
 
 
-def phase_pass(kc, op, sweep):
-    """One warm pass with the solve, its LOBPCG and the refine timed."""
+def phase_pass(tag, kc, sweep, make_solve):
+    """One warm pass with the solve and its LOBPCG timed."""
     from bravais_tpu_torch.eigen import lobpcg as lobpcg_mod
 
     t_solve, t_lob, t_ref = [], [], []
     plain = lobpcg_mod.lobpcg
     lobpcg_mod.lobpcg = timed(plain, t_lob)
     try:
-        solve = op.make_spectral_solve_fn()   # binds the timed lobpcg
+        solve = make_solve()                  # binds the timed lobpcg
     finally:
         lobpcg_mod.lobpcg = plain
     wsolve = timed(solve, t_solve)
-    wsolve.refine_np = timed(solve.refine_np, t_ref)
+    if hasattr(solve, "refine_np"):
+        wsolve.refine_np = solve.refine_np
     sweep.solve_fn = wsolve
-    res = sweep.run_warm(kc)
+    sweep._refine_host = timed(sweep._refine_host, t_ref)
+    try:
+        res = sweep.run_warm(kc)
+    finally:
+        sweep.solve_fn = make_solve()     # untimed, for later phases
+        del sweep._refine_host            # back to the class method
     nk = len(kc)
-    per_k = [s + r for s, r in zip(t_solve, t_ref)]
     iters = int(res.iterations.sum())
-    chip_smoke.log("pass", f"wall {res.wall_s:.4f} s for nk={nk}: host "
+    per_k = [s + r for s, r in zip(t_solve, t_ref)]
+    chip_smoke.log(tag, f"wall {res.wall_s:.4f} s for nk={nk}: host "
                    f"refine {sum(t_ref):.4f} s, device solve "
                    f"{sum(t_solve):.4f} s (setup and block transforms "
                    f"{sum(t_solve) - sum(t_lob):.4f} s, LOBPCG "
@@ -111,13 +121,64 @@ def phase_setup(kc, op):
                    ", ".join(f"{n} {t:.4f} ms" for n, t in ms.items()))
 
 
-def phase_trace(kc, op, sweep):
+def phase_field_pieces(kc, op, sweep):
+    """CUDA-event times of the field solve's per-k setup and of the
+    pieces of one LOBPCG iteration at k = kc[TRACE_K[0]]."""
+    import torch
+    from bravais_tpu_torch.eigen.jacobi_eigh import jacobi_eigh
+    from bravais_tpu_torch.utils.timing import cuda_ms
+
+    k = kc[TRACE_K[0]]
+    fd, fdL = op.fastdiag(), op.fastdiag_L()
+    s_ = op.default_fd_shift()
+    T = fd.blocks([("A", 1.0), ("M", s_)], k)
+    TL = fdL.blocks([("L", 1.0)], k)
+    setup = {
+        f"blocks A+sM {tuple(T.shape)}":
+            lambda: fd.blocks([("A", 1.0), ("M", s_)], k),
+        "their inverse": lambda: torch.linalg.inv(T),
+        f"blocks L {tuple(TL.shape)}": lambda: fdL.blocks([("L", 1.0)], k),
+        "their Jacobi eigh": lambda: jacobi_eigh(TL),
+    }
+    ms = {name: cuda_ms(fn, reps=20) for name, fn in setup.items()}
+    chip_smoke.log("diel setup", f"per-k setup {sum(ms.values()):.4f} ms: "
+                   + ", ".join(f"{n} {t:.4f} ms" for n, t in ms.items()))
+    ph = op.phases(k)
+    lpc = fdL.solver([("L", 1.0)], k, method="eigh")
+    pc = op.fd_precond(k)
+    m = sweep.m
+    gen = torch.Generator(device=op.device).manual_seed(2)
+    X = torch.randn((2 * m,) + op.space.field_shape, generator=gen,
+                    dtype=op.dtype, device=op.device)
+    phi = torch.randn((2 * m,) + op.space.dof_shape, generator=gen,
+                      dtype=op.dtype, device=op.device)
+
+    def proj(u):
+        return op.gradient_component_cheby(u, ph=ph, lsolve=lpc)
+
+    pieces = {
+        f"precond (A+sM)^-1 [{m} rows]": lambda: pc(X[:m]),
+        f"projector [{m} rows]": lambda: proj(X[:m]),
+        f"projector [{2 * m} rows]": lambda: proj(X),
+        f"fused (A, M) [{m} rows]": lambda: op.apply_AM(X[:m], ph=ph),
+        f"M [{2 * m} rows]": lambda: op.apply_M(X, ph=ph),
+        f"L apply [{2 * m} rows]": lambda: op.apply_Lk(phi, ph=ph),
+        f"L-twin solve [{2 * m} rows]": lambda: lpc(phi),
+    }
+    ms = {name: cuda_ms(fn, reps=20) for name, fn in pieces.items()}
+    chip_smoke.log("diel iter", "per-iteration pieces (one iteration runs "
+                   "the precond and the projector on m rows, the fused "
+                   "(A, M) on m rows, the projector and M on 2m rows): "
+                   + ", ".join(f"{n} {t:.4f} ms" for n, t in ms.items()))
+
+
+def phase_trace(tag, kc, sweep):
     """Profile the device solve (no refine) of the TRACE_K k-points."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    solve = op.make_spectral_solve_fn()
+    solve = sweep.solve_fn
     r, _ = solve(sweep._x0(), kc[TRACE_K[0] - 1], sweep.nev, sweep.tol,
                  sweep.maxiter)
     X0 = r.eigenvectors
@@ -150,7 +211,7 @@ def phase_trace(kc, op, sweep):
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
     window = spans[-1][1] - spans[0][0]
-    chip_smoke.log("trace", f"device solve of k {list(TRACE_K)} ({iters} "
+    chip_smoke.log(tag, f"device solve of k {list(TRACE_K)} ({iters} "
                    f"iterations): {len(dev)} device operations, busy "
                    f"{busy / 1e3:.3f} ms of a {window / 1e3:.3f} ms traced "
                    f"window (idle share {1 - busy / window:.4f}); the same "
@@ -166,11 +227,11 @@ def phase_trace(kc, op, sweep):
     for name, (_, t) in per_name.items():
         g = next((g for g, key in GROUPS if key in name), "other")
         share[g] = share.get(g, 0.0) + t
-    chip_smoke.log("trace", "device time by group: " + ", ".join(
+    chip_smoke.log(tag, "device time by group: " + ", ".join(
         f"{g} {100 * t / total:.2f}%"
         for g, t in sorted(share.items(), key=lambda x: -x[1])))
     for name, (c, t) in sorted(per_name.items(), key=lambda x: -x[1][1])[:15]:
-        chip_smoke.log("trace", f"{100 * t / total:6.2f}% {t / 1e3:8.3f} ms "
+        chip_smoke.log(tag, f"{100 * t / total:6.2f}% {t / 1e3:8.3f} ms "
                        f"x{c:<5d} {name[:110]}")
 
 
@@ -190,10 +251,18 @@ def main():
     dev = torch.device("cuda", 0)
     _, kc, op, sweep = chip_smoke.headline(dev)
     sweep.run_warm(kc)   # cold pass: build, caches, allocator
-    res = phase_pass(kc, op, sweep)
+    res = phase_pass("pass", kc, sweep, op.make_spectral_solve_fn)
     phase_setup(kc, op)
-    phase_trace(kc, op, sweep)
-    chip_smoke.log("done", f"iters/k {statistics.mean(res.iterations):.2f}")
+    phase_trace("trace", kc, sweep)
+    chip_smoke.log("done", f"iters/k {res.iterations.mean():.2f}")
+    del op, sweep
+
+    _, kc, op, sweep = chip_smoke.dielectric(dev)
+    sweep.run_warm(kc)
+    res = phase_pass("diel pass", kc, sweep, op.make_solve_fn)
+    phase_field_pieces(kc, op, sweep)
+    phase_trace("diel trace", kc, sweep)
+    chip_smoke.log("done", f"config 3 iters/k {res.iterations.mean():.2f}")
     return 0
 
 

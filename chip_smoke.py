@@ -8,18 +8,35 @@ Phases, one line each (a failed gate raises and the script exits
 non-zero; without a CUDA device it exits 1 before doing anything):
 
 1. device: the ``nvidia-smi`` name and power limit;
-2. build: compile ``bravais_tpu_torch/csrc/jacobi_eigh.cu`` for sm_90a;
+2. build: compile the three kernels of ``bravais_tpu_torch/csrc/``
+   (``jacobi_eigh.cu``, ``nd_apply.cu``, ``h1_apply.cu``) for sm_90a, one
+   ``nvcc`` each, all started together;
 3. kernel vs plain: the Jacobi kernel against its plain torch version
    on complex64 Hermitian matrices (n = 16, 33, 48, 64; batch 1 and 8;
-   the graded 45×45 matrix), then per-call times (CUDA events, median of
-   50) of the kernel, the plain version and ``torch.linalg.eigh`` at
-   n = 16 and 48;
+   the graded 45×45 matrix; the config-3 L-twin blocks, n = 27 × 216),
+   then per-call times (CUDA events, median) of the kernel, the plain
+   version and ``torch.linalg.eigh``; the Nédélec (nd) and H1 element
+   kernels against their plain versions (config-3 shapes at 16 and 48
+   rows, the odd FCC n=3 p=2 shape, varying coefficients, every half
+   ("AM", "A", "M"), h1 at k = 0 and k ≠ 0; relative error < 2e-5) with
+   kernel and plain times and each kernel's bound on the card;
 4. headline sweep: FCC Maxwell, n=8 p=4 (98,304 Nédélec dofs), Γ–X–W–L
    nk=16 with Γ nudged to 2e-2·b₁, 10 bands in a block of 16, spectral
    engine, device stop 1e-3 then the f64 host refine, warm-started; one
    cold pass and 3 timed passes; max eigenvalue error against the
    analytic empty-lattice bands < 1e-6, and every Rayleigh–Ritz and
-   whitening eigensolve of a pass launched the kernel.
+   whitening eigensolve of a pass launched the kernel;
+5. config-3 sweep: CUB with an ε = 13 sphere (r = 0.25a), n=6 p=3
+   (17,496 Nédélec dofs), Γ–X–M–R nk=16 with Γ nudged, 10 bands in a
+   block of 16, field engine (project-cheby deflation, fastdiag
+   preconditioner), device stop 1e-4 then the f64 host Rayleigh–Ritz,
+   warm-started; one cold pass and 3 timed passes; bands 1 and 10 within
+   1e-6 relative of the reference's f64 oracle record
+   (``results/certify_r5/dielectric_n6p3.jsonl``) at k indices 1, 5, 10
+   and 15, band 1 (the nudged-Γ acoustic band) within 2e-7 absolute and
+   band 10 within 1e-6 relative at k index 0, every refined residual
+   certificate finite and < 1e-2, and the nd, h1 and Jacobi launches of
+   a pass equal to the calls the path makes.
 
 The last two lines of standard output are a JSON object describing the
 kernels and the JSON result line ``{"ok": true, "device": {...}}``.
@@ -48,6 +65,16 @@ REPO = Path(__file__).resolve().parent
 LATTICE, N_ELEM, ORDER, NK, NEV, BLOCK = "FCC", 8, 4, 16, 10, 16
 TOL, DEVICE_TOL, MAXITER, PASSES = 1e-6, 1e-3, 250, 3
 ERR_BAR = 1e-6
+# Config 3 (the reference's ``bench.py --problem dielectric`` defaults,
+# with its near-Γ loose stop off).
+DIEL_N, DIEL_P, DIEL_EPS, DIEL_RADIUS = 6, 3, 13.0, 0.25
+DIEL_DEVICE_TOL, DIEL_PASSES = 1e-4, 3
+DIEL_ORACLE = REPO / "results" / "certify_r5" / "dielectric_n6p3.jsonl"
+DIEL_REL_BAR, DIEL_GAMMA_ABS, DIEL_RES_BAR = 1e-6, 2e-7, 1e-2
+ELEM_BAR = 2e-5
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and float32 flop/s
+# outside the tensor cores.
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 
 
 def log(phase, msg):
@@ -73,6 +100,26 @@ def graded45():
                                 np.geomspace(10.0, 1e6, n - 10)]))
     H = d[:, None] * A * d[None, :]
     return 0.5 * (H + H.conj().T)
+
+
+def bound(nbytes, flops):
+    """(least time in ms, what bounds it): the bytes over the card's
+    memory rate or the float32 operations over its peak, the larger."""
+    tb, tf = nbytes / PEAK_BYTES, flops / PEAK_F32
+    return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+
+def jacobi_work(n, sweeps):
+    """(bytes, flops) of Jacobi eigensolves of n×n complex64, one per
+    entry of ``sweeps``, each entry the sweeps that matrix ran: H read, V
+    and w written; per sweep one
+    rotation for each of the n(n−1)/2 pairs, each updating two rows of H
+    and two columns of H and V (60n flops), plus the Rutishauser test (5n²
+    per test). n is the problem's size, not the kernel's padded one."""
+    nbytes = len(sweeps) * (2 * n * n * 8 + n * 4)
+    flops = sum(s * (n * (n - 1) // 2) * 60 * n + (s + 1) * 5 * n * n
+                for s in map(int, sweeps))
+    return nbytes, flops
 
 
 def phase_kernels(dev):
@@ -127,15 +174,183 @@ def phase_kernels(dev):
         t_k = cuda_ms(lambda: jacobi_eigh(H, rel_tol=rel_tol))
         t_p = cuda_ms(lambda: jacobi_eigh_plain(H, rel_tol=rel_tol))
         t_e = cuda_ms(lambda: torch.linalg.eigh(H))
-        times[n] = (t_k, t_p, t_e)
+        nsw = int(jacobi_cuda.sweeps_run(H, rel_tol=rel_tol))
+        b_ms, b_by = bound(*jacobi_work(n, [nsw]))
+        times[n] = (t_k, t_p, t_e, b_ms, b_by)
         log("kernel", f"n={n} rel_tol={rel_tol}: kernel {t_k:.4f} ms, "
             f"plain {t_p:.4f} ms, torch.linalg.eigh {t_e:.4f} ms "
-            f"(CUDA events, median)")
+            f"(CUDA events, median); {nsw} sweeps, bound {b_ms:.6f} ms "
+            f"({b_by})")
+    t_k, t_p, t_e, b_ms, b_by = times[48]
     return {"name": "jacobi_eigh", "route": "cuda",
             "source": "bravais_tpu_torch/csrc/jacobi_eigh.cu",
             "replaces": "bravais_tpu/eigen/pallas_jacobi.py:155",
-            "max_abs_err": max_abs, "ms": times[48][0],
-            "plain_ms": times[48][1]}
+            "max_abs_err": max_abs, "ms": t_k, "plain_ms": t_p,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_e}
+
+
+def phase_jacobi_ltwin(dev, op):
+    """The Jacobi kernel on the config-3 L-twin blocks (216 of 27×27,
+    padded to 28), the batch the field solve's projector factors once per
+    k, against its plain version; returns the max abs eigenvalue error."""
+    import numpy as np
+    import torch
+    from bravais_tpu_torch.eigen import jacobi_cuda
+    from bravais_tpu_torch.eigen.jacobi_eigh import (jacobi_eigh,
+                                                    jacobi_eigh_plain)
+    from bravais_tpu_torch.utils.timing import cuda_ms
+
+    k = np.asarray(op.space.grid.lattice.k_cart((0.1, 0.3, 0.0)))
+    T = op.fastdiag_L().blocks([("L", 1.0)], k)
+    w, V = jacobi_eigh(T)
+    w_pl, _ = jacobi_eigh_plain(T)
+    torch.cuda.synchronize()
+    Tn, w, V, w_pl = (t.cpu().numpy() for t in (T, w, V, w_pl))
+    scale = np.maximum(np.abs(w_pl), 1e-3 * np.abs(w_pl).max(axis=1,
+                                                             keepdims=True))
+    ev = float(np.max(np.abs(w - w_pl) / scale))
+    R = Tn @ V - V * w[:, None, :]
+    res = float(np.max(np.linalg.norm(R, axis=(1, 2))
+                       / np.linalg.norm(Tn, axis=(1, 2))))
+    eye = np.eye(T.shape[-1])
+    orth = float(np.max(np.linalg.norm(V.conj().transpose(0, 2, 1) @ V - eye,
+                                       axis=(1, 2))))
+    nsw = jacobi_cuda.sweeps_run(T).cpu().numpy()
+    Td = torch.as_tensor(Tn, device=dev)
+    t_k = cuda_ms(lambda: jacobi_eigh(Td), reps=20)
+    t_p = cuda_ms(lambda: jacobi_eigh_plain(Td), reps=3, warmup=1)
+    t_e = cuda_ms(lambda: torch.linalg.eigh(Td), reps=20)
+    b_ms, b_by = bound(*jacobi_work(Tn.shape[1], nsw))
+    log("kernel", f"L-twin {Tn.shape[0]}x{Tn.shape[1]}x{Tn.shape[2]}: eig "
+        f"err/scale {ev:.3e} (<5e-4), |HV-VL|/|H| {res:.3e} (<2e-5), "
+        f"|V^H V-I| {orth:.3e} (<2e-4), sweeps {nsw.min()}-{nsw.max()}; "
+        f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, torch.linalg.eigh "
+        f"{t_e:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    if not (ev < 5e-4 and res < 2e-5 and orth < 2e-4):
+        raise RuntimeError("Jacobi kernel disagrees with plain on the "
+                           "L-twin blocks")
+    return float(np.max(np.abs(w - w_pl)))
+
+
+def _rel(a, b):
+    import torch
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b))
+
+
+def phase_elements(dev, op3):
+    """The nd and h1 element kernels against their plain versions, with
+    per-call times at the config-3 shapes; returns their records."""
+    import numpy as np
+    import torch
+    from bravais_tpu_torch.lattices import make_lattice
+    from bravais_tpu_torch.meshing.grid import PeriodicGrid
+    from bravais_tpu_torch.operators import h1_apply, nd_apply
+    from bravais_tpu_torch.operators.coefficients import eval_coefficient
+    from bravais_tpu_torch.operators.curlcurl import BlochCurlCurl
+    from bravais_tpu_torch.spaces.h1 import H1Space
+    from bravais_tpu_torch.spaces.nedelec import NedelecSpace
+    from bravais_tpu_torch.utils.timing import cuda_ms
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def dofs(n, shape):
+        return torch.randn((n,) + shape, dtype=torch.complex64, device=dev,
+                           generator=gen)
+
+    fcc = make_lattice("FCC")
+    g3 = PeriodicGrid.make(fcc, 3)
+    nd_small = BlochCurlCurl(
+        NedelecSpace.make(g3, 2), eps=lambda x: 1 + 0.4 * x[..., 0] ** 2,
+        mu_inv=lambda x: 1 + 0.2 * np.sum(x ** 2, axis=-1), device=dev)
+    h1_sp = H1Space.make(g3, 2)
+    xq = h1_sp.qpoints_phys()
+    h1_small = h1_apply.H1Consts.from_space(
+        h1_sp, eval_coefficient(lambda x: 1 + 0.3 * x[..., 0] ** 2, xq),
+        eval_coefficient(lambda x: 1 + np.sum(x ** 2, axis=-1), xq), dev)
+    k3 = [float(v) for v in fcc.k_cart((0.3, 0.2, 0.1))]
+    records = {}
+
+    # -- nd --
+    max_abs = 0.0
+    for label, c, rows in (("config-3", op3.nd_consts(), 16),
+                           ("config-3", op3.nd_consts(), 48),
+                           ("FCC n=3 p=2", nd_small.nd_consts(), 5)):
+        ue = dofs(rows * c.nelem, (c.ndof,))
+        errs = []
+        for want in ("AM", "A", "M"):
+            out = nd_apply.nedelec_apply(ue, c, want)
+            ref = nd_apply.nedelec_apply_plain(ue, c, want)
+            for a, b in zip(out, ref):
+                if b is not None:
+                    errs.append(_rel(a, b))
+                    max_abs = max(max_abs, float((a - b).abs().max()))
+        err = max(errs)
+        log("kernel", f"nd {label} rows={rows}: rel err {err:.3e} "
+            f"(<{ELEM_BAR:g}) over AM, A, M")
+        if not err < ELEM_BAR:
+            raise RuntimeError(f"nd kernel disagrees with plain ({label})")
+        if label == "config-3":
+            for want in ("AM", "M"):
+                t_k = cuda_ms(lambda: nd_apply.nedelec_apply(ue, c, want))
+                t_p = cuda_ms(lambda: nd_apply.nedelec_apply_plain(ue, c,
+                                                                  want),
+                              reps=10)
+                b_ms, b_by = bound(*nd_apply.work(ue.shape[0], c, want))
+                log("kernel", f"nd config-3 rows={rows} {want}: kernel "
+                    f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} ms "
+                    f"({b_by}) (CUDA events, median)")
+                if rows == 16 and want == "AM":
+                    records["nd"] = {
+                        "name": "nedelec_apply", "route": "cuda",
+                        "source": "bravais_tpu_torch/csrc/nd_apply.cu",
+                        "replaces":
+                            "bravais_tpu/operators/pallas/nd_apply.py:134",
+                        "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": None}
+    records["nd"]["max_abs_err"] = max_abs
+
+    # -- h1 --
+    max_abs = 0.0
+    c3 = op3.qp_L().consts()
+    kx = [float(v) for v in op3.space.grid.lattice.k_cart((0.1, 0.3, 0.2))]
+    for label, c, rows, k in (("config-3 k=0", c3, 16, [0.0] * 3),
+                              ("config-3 k=0", c3, 48, [0.0] * 3),
+                              ("config-3 k!=0", c3, 16, kx),
+                              ("FCC n=3 p=2 k!=0", h1_small, 5, k3)):
+        ue = dofs(rows * c.nelem, (c.l,) * c.d)
+        errs = []
+        for want in ("AM", "A", "M"):
+            out = h1_apply.helmholtz_apply(ue, c, k, want)
+            ref = h1_apply.helmholtz_apply_plain(ue, c, k, want)
+            for a, b in zip(out, ref):
+                if b is not None:
+                    errs.append(_rel(a, b))
+                    max_abs = max(max_abs, float((a - b).abs().max()))
+        err = max(errs)
+        log("kernel", f"h1 {label} rows={rows}: rel err {err:.3e} "
+            f"(<{ELEM_BAR:g}) over AM, A, M")
+        if not err < ELEM_BAR:
+            raise RuntimeError(f"h1 kernel disagrees with plain ({label})")
+        if label == "config-3 k=0":
+            t_k = cuda_ms(lambda: h1_apply.helmholtz_apply(ue, c, k, "A"))
+            t_p = cuda_ms(lambda: h1_apply.helmholtz_apply_plain(ue, c, k,
+                                                                "A"),
+                          reps=10)
+            b_ms, b_by = bound(*h1_apply.work(ue.shape[0], c, k, "A"))
+            log("kernel", f"h1 config-3 k=0 rows={rows} A: kernel "
+                f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} ms "
+                f"({b_by}) (CUDA events, median)")
+            if rows == 16:
+                records["h1"] = {
+                    "name": "helmholtz_apply", "route": "cuda",
+                    "source": "bravais_tpu_torch/csrc/h1_apply.cu",
+                    "replaces":
+                        "bravais_tpu/operators/pallas/h1_apply.py:128",
+                    "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": None}
+    records["h1"]["max_abs_err"] = max_abs
+    return records["nd"], records["h1"]
 
 
 def headline(dev):
@@ -208,6 +423,9 @@ def phase_sweep(dev):
         if not (launches > 0 and launches == expected):
             raise RuntimeError(f"Jacobi kernel launches {launches} != "
                                f"{expected} eigensolves of the sweep")
+        if res.fallbacks:
+            raise RuntimeError(f"{res.fallbacks} refine cross-check "
+                               f"failures")
         if p:
             walls.append(res.wall_s)
     wall = statistics.median(walls)
@@ -219,6 +437,141 @@ def phase_sweep(dev):
     return launches
 
 
+def dielectric(dev):
+    """Config 3 on ``dev``: (lattice, k-points with Γ nudged, operator,
+    BandSweep). Extracts (or loads) the host stencils."""
+    import numpy as np
+    import torch
+    from bravais_tpu_torch.bands.sweep import BandSweep
+    from bravais_tpu_torch.lattices import kpath, make_lattice
+    from bravais_tpu_torch.meshing.grid import PeriodicGrid
+    from bravais_tpu_torch.operators.coefficients import dielectric_sphere
+    from bravais_tpu_torch.operators.curlcurl import BlochCurlCurl
+    from bravais_tpu_torch.spaces.nedelec import NedelecSpace
+
+    lat = make_lattice("CUB")
+    kc = kpath(lat, npts=NK, path=[["G", "X", "M", "R"]]).k_cart.copy()
+    for i in range(kc.shape[0]):
+        if np.linalg.norm(kc[i]) < 1e-12:
+            kc[i] = 2e-2 * lat.B[0]
+    sp = NedelecSpace.make(PeriodicGrid.make(lat, DIEL_N), DIEL_P)
+    eps = dielectric_sphere(DIEL_EPS, 1.0, DIEL_RADIUS,
+                            0.5 * lat.A.sum(axis=0), lat.A)
+    op = BlochCurlCurl(sp, eps=eps, dtype=torch.complex64, device=dev)
+    t0 = time.perf_counter()
+    solve = op.make_solve_fn()
+    log("diel", f"{sp.ndofs} dofs, {int(np.prod(sp.grid.shape))} elements, "
+        f"q={sp.q}, Chebyshev steps {op.cheby_steps()}; host stencils "
+        f"{time.perf_counter() - t0:.2f} s")
+    sweep = BandSweep(op, solve, nev=NEV, block=BLOCK, tol=TOL,
+                      maxiter=MAXITER, device_tol=DIEL_DEVICE_TOL)
+    return lat, kc, op, sweep
+
+
+def expected_launches(iterations, steps):
+    """The kernel launches one pass of the field solve makes, from its
+    iteration counts: per k, the projector runs once on X0 and twice per
+    iteration (preconditioner, X/P deflation), each one nd M-half and
+    steps−1 h1 applies; one M-half more for the start whitening and one
+    per iteration for the deflated M X; the fused (A, M) once per
+    iteration (W) and twice per 16-iteration segment (X and P refresh);
+    Jacobi once per iteration (Rayleigh–Ritz), once for the start
+    whitening and once for the L-twin blocks."""
+    its = [int(i) for i in iterations]
+    proj = sum(1 + 2 * i for i in its)
+    return {"nd M": proj + sum(1 + i for i in its),
+            "nd AM": sum(i + 2 * -(-i // 16) for i in its),
+            "nd A": 0, "h1": (steps - 1) * proj,
+            "jacobi": sum(i + 2 for i in its)}
+
+
+def phase_dielectric(dev, setup):
+    """The config-3 warm sweep; returns the launches of one pass."""
+    import numpy as np
+    import torch
+    from bravais_tpu_torch.eigen import jacobi_cuda
+    from bravais_tpu_torch.operators import h1_apply, nd_apply
+
+    _, kc, op, sweep = setup
+    oracle = {}
+    for line in DIEL_ORACLE.read_text().splitlines():
+        rec = json.loads(line)
+        if "summary" in rec:      # the record's configuration line
+            got = (rec["n"], rec["p"], rec["ndofs"], rec["nev"],
+                   rec["eps_in"], rec["radius"])
+            want = (DIEL_N, DIEL_P, op.space.ndofs, NEV, DIEL_EPS,
+                    DIEL_RADIUS)
+            if got != want:
+                raise RuntimeError(f"oracle record is for {got}, the sweep "
+                                   f"runs {want}")
+            continue
+        oracle[rec["k_index"]] = rec
+        if not np.allclose(rec["k"], kc[rec["k_index"]], rtol=0,
+                           atol=1e-12):
+            raise RuntimeError(f"oracle k {rec['k']} != path k "
+                               f"{kc[rec['k_index']].tolist()}")
+    steps = op.cheby_steps()
+    walls, shares = [], []
+    for p in range(DIEL_PASSES + 1):
+        if p == 1:
+            torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        jacobi_cuda.launches = nd_apply.launches = h1_apply.launches = 0
+        for mode in nd_apply.launches_by_mode:
+            nd_apply.launches_by_mode[mode] = 0
+        res = sweep.run_warm(kc)
+        torch.cuda.synchronize()
+        got = {"nd M": nd_apply.launches_by_mode["M"],
+               "nd AM": nd_apply.launches_by_mode["AM"],
+               "nd A": nd_apply.launches_by_mode["A"],
+               "h1": h1_apply.launches, "jacobi": jacobi_cuda.launches}
+        want = expected_launches(res.iterations, steps)
+        errs = []
+        for ki, rec in sorted(oracle.items()):
+            lam = res.eigenvalues[ki]
+            e_lo = abs(lam[0] - rec["lam_lo"])
+            e_hi = abs(lam[NEV - 1] - rec["lam_hi"]) / rec["lam_hi"]
+            lo_ok = (e_lo < DIEL_GAMMA_ABS if ki == 0
+                     else e_lo / rec["lam_lo"] < DIEL_REL_BAR)
+            errs.append((ki, e_lo if ki == 0 else e_lo / rec["lam_lo"],
+                         e_hi, lo_ok and e_hi < DIEL_REL_BAR))
+        resid = res.residuals.max(axis=1)
+        tag = "cold" if p == 0 else f"pass {p}"
+        share = res.refine_s / res.wall_s
+        log("diel", f"{tag}: {res.wall_s:.3f} s (host refine "
+            f"{res.refine_s:.3f} s, share {share:.4f}), "
+            f"{len(kc) / res.wall_s:.4f} eig/s, iters/k "
+            f"{res.iterations.mean():.2f} {res.iterations.tolist()}, "
+            f"launches {got} (expected {want})")
+        log("diel", f"{tag}: oracle errors (k index: band 1 "
+            f"{'abs at k 0, ' if 0 in oracle else ''}rel elsewhere; band 10 "
+            f"rel) " + ", ".join(f"{ki}: {lo:.3e} {hi:.3e}"
+                                 for ki, lo, hi, _ in errs))
+        log("diel", f"{tag}: max refined residual per k "
+            + " ".join(f"{r:.3e}" for r in resid))
+        if not all(ok for *_, ok in errs):
+            raise RuntimeError(f"config-3 bands off the oracle: {errs}")
+        if not (np.all(np.isfinite(resid)) and resid.max() < DIEL_RES_BAR):
+            raise RuntimeError(f"refined residual {resid.max():.3e} >= "
+                               f"{DIEL_RES_BAR}")
+        if got != want or min(got["nd M"], got["nd AM"], got["h1"],
+                              got["jacobi"]) <= 0:
+            raise RuntimeError(f"kernel launches {got} != the path's calls "
+                               f"{want}")
+        if p:
+            walls.append(res.wall_s)
+            shares.append(share)
+    wall = statistics.median(walls)
+    log("diel", f"config 3: {len(kc) / wall:.4f} eig/s (median of "
+        f"{DIEL_PASSES}; nk={len(kc)} / pass wall {wall:.3f} s), iters/k "
+        f"{res.iterations.mean():.2f}, host-refine share "
+        f"{statistics.median(shares):.4f}, launches per pass nd "
+        f"{got['nd M'] + got['nd AM']} (M {got['nd M']}, AM {got['nd AM']}), "
+        f"h1 {got['h1']}, Jacobi {got['jacobi']}, peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
+    return got
+
+
 def main():
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
 
@@ -228,7 +581,7 @@ def main():
         return 1
     sys.path.insert(0, str(REPO))
     import bravais_tpu_torch  # noqa: F401  (precision flags)
-    from bravais_tpu_torch.eigen import jacobi_cuda
+    from bravais_tpu_torch.utils import cuda_build
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -240,17 +593,31 @@ def main():
     print(smi, flush=True)
 
     t0 = time.perf_counter()
-    lib = jacobi_cuda.build()
-    log("build", f"{lib.name} in {time.perf_counter() - t0:.2f} s")
-    ptxas = lib.with_name(lib.name.replace(".so", ".ptxas.txt"))
-    if ptxas.exists():
-        for line in ptxas.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log("build", line.strip())
+    libs = cuda_build.build_all()
+    log("build", ", ".join(lib.name for lib in libs.values())
+        + f" in {time.perf_counter() - t0:.2f} s (parallel nvcc)")
+    for lib in libs.values():
+        ptxas = lib.with_name(lib.name.replace(".so", ".ptxas.txt"))
+        if ptxas.exists():
+            for line in ptxas.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    log("build", f"{lib.name}: {line.strip()}")
 
-    record = phase_kernels(dev)
-    record["launches"] = phase_sweep(dev)
-    print(json.dumps({"kernels": [record]}), flush=True)
+    jac = phase_kernels(dev)
+    setup3 = dielectric(dev)
+    jac["max_abs_err"] = max(jac["max_abs_err"],
+                             phase_jacobi_ltwin(dev, setup3[2]))
+    nd_rec, h1_rec = phase_elements(dev, setup3[2])
+    fcc_launches = phase_sweep(dev)
+    diel = phase_dielectric(dev, setup3)
+    jac["launches"] = fcc_launches + diel["jacobi"]
+    jac["launches_by_path"] = {"fcc_headline": fcc_launches,
+                               "config3_field": diel["jacobi"]}
+    nd_rec["launches"] = diel["nd M"] + diel["nd AM"] + diel["nd A"]
+    nd_rec["launches_by_mode"] = {"M": diel["nd M"], "AM": diel["nd AM"],
+                                  "A": diel["nd A"]}
+    h1_rec["launches"] = diel["h1"]
+    print(json.dumps({"kernels": [jac, nd_rec, h1_rec]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,6 +1,8 @@
-"""The port on a CUDA device: the hand-written Jacobi kernel against its
-plain torch version, and the warm spectral sweep on the card against the
-same sweep on the CPU. Every test skips without a CUDA device.
+"""The port on a CUDA device: the hand-written Jacobi, Nédélec (nd) and
+H1 element kernels against their plain torch versions, the field
+engine's fused (A, M) apply on the card against the CPU, and the warm
+spectral and field sweeps on the card against the same sweeps on the
+CPU. Every test skips without a CUDA device.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without them:
@@ -19,7 +21,11 @@ from bravais_tpu_torch.eigen.jacobi_eigh import (jacobi_eigh,
                                                 jacobi_eigh_plain)
 from bravais_tpu_torch.lattices import kpath, make_lattice
 from bravais_tpu_torch.meshing.grid import PeriodicGrid
+from bravais_tpu_torch.operators import h1_apply, nd_apply
+from bravais_tpu_torch.operators.coefficients import (dielectric_sphere,
+                                                      eval_coefficient)
 from bravais_tpu_torch.operators.curlcurl import BlochCurlCurl
+from bravais_tpu_torch.spaces.h1 import H1Space
 from bravais_tpu_torch.spaces.nedelec import NedelecSpace
 
 pytestmark = pytest.mark.cuda
@@ -30,6 +36,18 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     return torch.device("cuda")
+
+
+def _rel(a, b):
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b))
+
+
+def _sphere_op(n, p, dev):
+    lat = make_lattice("CUB")
+    eps = dielectric_sphere(13.0, 1.0, 0.25, 0.5 * lat.A.sum(axis=0), lat.A)
+    return BlochCurlCurl(NedelecSpace.make(PeriodicGrid.make(lat, n), p),
+                         eps=eps, device=dev)
 
 
 def _rand_herm(n, seed):
@@ -115,3 +133,100 @@ def test_sweep_on_cuda_matches_cpu(cuda):
     np.testing.assert_allclose(r_gpu.eigenvalues, r_cpu.eigenvalues,
                                rtol=1e-9, atol=1e-12)
     assert np.max(r_gpu.residuals) < 1e-10
+
+
+@pytest.mark.parametrize("n,p,rows", [(3, 2, 3), (6, 3, 16)])
+def test_nd_kernel_matches_plain(cuda, n, p, rows):
+    """Every half of the Nédélec kernel against the plain version; one
+    launch per call."""
+    c = _sphere_op(n, p, cuda).nd_consts()
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    ue = torch.randn((rows * c.nelem, c.ndof), generator=gen,
+                     dtype=torch.complex64, device=cuda)
+    for want in ("AM", "A", "M"):
+        before = nd_apply.launches
+        out = nd_apply.nedelec_apply(ue, c, want)
+        assert nd_apply.launches == before + 1
+        ref = nd_apply.nedelec_apply_plain(ue, c, want)
+        for a, b in zip(out, ref):
+            assert (a is None) == (b is None)
+            if b is not None:
+                assert _rel(a, b) < 2e-5, want
+
+
+@pytest.mark.parametrize("lat,shape,p,kfrac", [
+    ("CUB", (6, 6, 6), 3, 0.0), ("FCC", (3, 3, 3), 2, 0.3),
+    ("SQR", (4, 4), 2, 0.3)])
+def test_h1_kernel_matches_plain(cuda, lat, shape, p, kfrac):
+    lattice = make_lattice(lat)
+    sp = H1Space.make(PeriodicGrid.make(lattice, shape), p)
+    xq = sp.qpoints_phys()
+    c = h1_apply.H1Consts.from_space(
+        sp, eval_coefficient(lambda x: 1 + 0.3 * x[..., 0] ** 2, xq),
+        eval_coefficient(lambda x: 1 + np.sum(x ** 2, axis=-1), xq), cuda)
+    k = [float(v) for v in lattice.k_cart([kfrac] * sp.dim)]
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    ue = torch.randn((4 * c.nelem,) + (c.l,) * c.d, generator=gen,
+                     dtype=torch.complex64, device=cuda)
+    for want in ("AM", "A", "M"):
+        before = h1_apply.launches
+        out = h1_apply.helmholtz_apply(ue, c, k, want)
+        assert h1_apply.launches == before + 1
+        ref = h1_apply.helmholtz_apply_plain(ue, c, k, want)
+        for a, b in zip(out, ref):
+            if b is not None:
+                assert _rel(a, b) < 2e-5, want
+
+
+def test_element_kernels_refuse_other_inputs(cuda):
+    c = _sphere_op(3, 2, cuda).nd_consts()
+    bad = torch.zeros((c.nelem, c.ndof), dtype=torch.complex128,
+                      device=cuda)
+    with pytest.raises(ValueError):
+        nd_apply.nedelec_apply(bad, c)
+    with pytest.raises(ValueError):
+        nd_apply.nedelec_apply(bad[:-1].to(torch.complex64), c)
+
+
+def test_apply_AM_on_cuda_matches_cpu(cuda):
+    ops = {dev: _sphere_op(4, 2, dev) for dev in ("cpu", cuda)}
+    rng = np.random.default_rng(5)
+    shp = (3,) + ops["cpu"].space.field_shape
+    u = (rng.standard_normal(shp) + 1j * rng.standard_normal(shp)
+         ).astype(np.complex64)
+    k = np.asarray(make_lattice("CUB").k_cart((0.3, 0.2, 0.1)))
+    y_c, m_c = ops["cpu"].apply_AM(torch.as_tensor(u), k)
+    y_g, m_g = ops[cuda].apply_AM(torch.as_tensor(u, device=cuda), k)
+    assert _rel(y_g.cpu(), y_c) < 2e-5
+    assert _rel(m_g.cpu(), m_c) < 2e-5
+    L_c = ops["cpu"].apply_Lk(torch.as_tensor(u[:, 0]), k)
+    L_g = ops[cuda].apply_Lk(torch.as_tensor(u[:, 0], device=cuda), k)
+    assert _rel(L_g.cpu(), L_c) < 2e-5
+
+
+def test_field_sweep_on_cuda_matches_cpu(cuda):
+    """CUB ε-sphere n=4 p=2, three k-points: refined bands equal on both
+    devices, and the card's pass launched the nd, h1 and Jacobi kernels."""
+    lat = make_lattice("CUB")
+    kc = np.asarray([lat.k_cart(f) for f in
+                     ((0.02, 0.0, 0.0), (0.25, 0.0, 0.0), (0.5, 0.0, 0.0))])
+    out = {}
+    for dev in ("cpu", cuda):
+        op = _sphere_op(4, 2, dev)
+        sweep = BandSweep(op, op.make_solve_fn(), nev=5, block=9, tol=1e-6,
+                          maxiter=250, device_tol=1e-4)
+        jacobi_cuda.launches = nd_apply.launches = h1_apply.launches = 0
+        res = sweep.run_warm(kc)
+        out[str(dev)] = (res, (nd_apply.launches, h1_apply.launches,
+                               jacobi_cuda.launches),
+                         op.cheby_steps())
+    (r_cpu, _, _), (r_gpu, (nd, h1, jac), steps) = \
+        out["cpu"], out[str(cuda)]
+    its = [int(i) for i in r_gpu.iterations]
+    assert jac == sum(i + 2 for i in its)
+    assert h1 == (steps - 1) * sum(1 + 2 * i for i in its)
+    assert nd > 0
+    assert np.all(np.abs(r_gpu.iterations - r_cpu.iterations) <= 3)
+    np.testing.assert_allclose(r_gpu.eigenvalues, r_cpu.eigenvalues,
+                               rtol=1e-6)
+    assert np.max(r_gpu.residuals) < 1e-2

@@ -85,7 +85,7 @@ def test_stencils_match_reference(n, monkeypatch):
     packages really extract."""
     monkeypatch.setenv("BRAVAIS_STENCIL_CACHE", "")
     op = BlochCurlCurl(NedelecSpace.make(
-        PeriodicGrid.make(make_lattice("FCC"), n), 2))
+        PeriodicGrid.make(make_lattice("FCC"), n), 2), device="cpu")
     ref = CurlRef(NedRef.make(GridRef.make(make_lattice_ref("FCC"), n), 2),
                   dtype=jnp.complex64)
     fd, fdr = op.fastdiag_G(), ref.fastdiag_G()
@@ -102,6 +102,8 @@ def test_import_keeps_jax_out():
     code = ("import sys, bravais_tpu_torch, bravais_tpu_torch.convert, "
             "bravais_tpu_torch.bands.sweep, "
             "bravais_tpu_torch.operators.curlcurl, "
+            "bravais_tpu_torch.operators.qplaplace, "
+            "bravais_tpu_torch.eigen.refine, "
             "bravais_tpu_torch.eigen.jacobi_cuda, "
             "bravais_tpu_torch.utils.timing; "
             "bad = [m for m in sys.modules if m == 'jax' "

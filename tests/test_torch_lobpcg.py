@@ -98,7 +98,7 @@ def test_spectral_solve_matches_reference():
                   dtype=jnp.complex64)
     fdr = ref.fastdiag_G()
     op = BlochCurlCurl(NedelecSpace.make(
-        PeriodicGrid.make(make_lattice("FCC"), 4), 2))
+        PeriodicGrid.make(make_lattice("FCC"), 4), 2), device="cpu")
     op.set_fastdiag(fastdiag_from_reference(
         {k: np.asarray(v) for k, v in fdr.stencils.items()}, fdr.shape,
         fdr.p, fdr.ncomp, fdr.A_rows, device="cpu"))
