@@ -133,8 +133,11 @@ class BandSweep:
 
     def run_warm(self, k_cart: np.ndarray) -> SweepResult:
         """Sequential sweep, each k warm-started from the previous
-        eigenvector block."""
-        k_cart = np.asarray(k_cart, np.float64)
+        eigenvector block. The k-points are rounded to the device's real
+        precision first, as the reference does: the solve and the f64
+        refine see the same k."""
+        rdtype = torch.empty((), dtype=self.op.rdtype).numpy().dtype
+        k_cart = np.asarray(k_cart, rdtype)
         X = self._x0()
         lams, itss, ress = [], [], []
         refine_s, fallbacks = 0.0, 0

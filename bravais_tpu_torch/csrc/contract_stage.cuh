@@ -1,5 +1,5 @@
 // Sum-factorised tensor-product contractions inside one thread block,
-// shared by the element-apply kernels (nd_apply.cu, h1_apply.cu).
+// for the Nedelec element-apply kernel (nd_apply.cu).
 //
 // A contraction maps one element's local values (l, ..., l) (d axes) to
 // its quadrature values (q, ..., q) with a 1D table T (q x l) per axis,

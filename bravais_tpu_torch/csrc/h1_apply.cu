@@ -15,168 +15,321 @@
 // vanish and their contractions are skipped. The Bloch phases of a
 // quasi-periodic space live in the gather and scatter outside the kernel.
 //
-// Layout (element-major): block b = row * nelem + element reads its l^d
-// complex values contiguously from u[b]; alpha.w, beta.w are
+// Layout (element-major): element-row b = row * nelem + element reads its
+// l^d complex values contiguously from u[b]; alpha.w, beta.w are
 // (nelem, q^d) float32 with the quadrature weights folded in. The tables
-// B, D, the metric Jinv^T, Jinv and k are scalar arguments.
+// B, D, the metric Jinv^T, Jinv and k are kernel parameters.
 //
 // What bounds it on an H100: at config-3 shapes (d = 3, p = 3: l = 4,
-// q = 5) a 16-row k = 0 call reads 1.8 MB and writes 1.8 MB (about 1 us at
-// 3.35 TB/s) and does about 0.12 GFLOP of f32 (6 contractions of 1,220
-// multiply-adds on complex values; about 1.8 us at 67 TFLOP/s), a few
-// microseconds either way. As in nd_apply.cu: one thread block per
-// (row, element), every intermediate in shared memory, the contractions
-// of a stage batched behind one barrier.
+// q = 5) a 16-row k = 0 "A" call reads and writes 1.8 MB each (about 1 us
+// at 3.35 TB/s) and does about 0.13 GFLOP of f32 (about 2 us at
+// 67 TFLOP/s): each element-row is tiny (64 values in, 125 quadrature
+// points), so the limit in practice is the latency of its dependent
+// stages and the shared memory they pass through. The design:
+//
+// * One warp per (row, element), several element-rows per block, no block
+//   barrier: the stages of an element-row run inside its warp, separated
+//   by __syncwarp, with the intermediates in the warp's own shared slab.
+// * A plan fixed at compile time. Forward, the gradients share stages:
+//   stage 0 gives B.u and D.u once, stage 1 BB, BD and DB, the last stage
+//   the value BBB and the gradients (DBB, BDB, BBD). Transposed, the terms
+//   that share their remaining tables are summed before the next stage:
+//   (h_0, h_1, h_2 + s) -> (B^T h_0, D^T h_1 + B^T (h_2 + ...)) -> y.
+// * A lane owns a fiber (the values along the contracted axis) and emits
+//   every output of it for one or two tables: the fiber is read from
+//   shared memory once, the tables sit in registers.
+// * Extents from a template on (d, l, q): the repository's shapes are
+//   instantiated (div/mod by constants, loops unrolled); any other shape
+//   runs the same template with runtime extents.
+// * The element-row is staged with 16-byte loads (32 lanes, 512 B at
+//   config 3).
 
 #include <cuda_runtime.h>
 
-#include "contract_stage.cuh"
-
 namespace {
 
-using bt::kMaxJobs;
-using bt::kMaxL;
-using bt::kMaxQ;
-
-constexpr int kThreads = 128;
+constexpr int kMaxQ = 6;  // quadrature points per axis
+constexpr int kMaxL = 5;  // local dofs per axis (p + 1)
+constexpr int kMaxWarps = 4;
 
 struct H1Params {
-  float tab[2 * kMaxQ * kMaxL];  // B, D, each (q, l) row-major
-  float JinvT[9], Jinv[9];       // row-major, leading d x d of a 3 x 3
+  float B[kMaxQ * kMaxL], D[kMaxQ * kMaxL];  // (q, l) row-major, zero-padded
+  float JinvT[9], Jinv[9];                   // row-major, leading d x d of 3 x 3
   float k[3];
-  int q, l, d, nelem, want;
+  int q, l, nelem, nblocks, want, kz;
+  int xsize, ysize;  // float2 slots of the warp's two buffers
 };
 
-__global__ void __launch_bounds__(kThreads)
+// Forward along one axis, one source, one or two tables:
+//   oa[a][n][b] = sum_o Ta[n][o] in[a][o][b]  (in: (pre, l, post), out: (pre, q, post)).
+template <int LM, int QM>
+__device__ __forceinline__ void fwd(const float2* in, int pre, int post, int l, int q,
+                                    const float (&Ta)[QM * LM], float2* oa,
+                                    const float (&Tb)[QM * LM], float2* ob, int lane) {
+  for (int f = lane; f < pre * post; f += 32) {
+    const int a = f / post, b = f - a * post;
+    const float2* x = in + a * l * post + b;
+    float2 v[LM];
+#pragma unroll
+    for (int o = 0; o < LM; ++o)
+      if (o < l) v[o] = x[o * post];
+#pragma unroll
+    for (int n = 0; n < QM; ++n) {
+      if (n >= q) break;
+      float ar = 0.0f, ai = 0.0f, br = 0.0f, bi = 0.0f;
+#pragma unroll
+      for (int o = 0; o < LM; ++o) {
+        if (o >= l) break;
+        ar = fmaf(Ta[n * l + o], v[o].x, ar);
+        ai = fmaf(Ta[n * l + o], v[o].y, ai);
+        if (ob) {
+          br = fmaf(Tb[n * l + o], v[o].x, br);
+          bi = fmaf(Tb[n * l + o], v[o].y, bi);
+        }
+      }
+      const int out = (a * q + n) * post + b;
+      oa[out] = make_float2(ar, ai);
+      if (ob) ob[out] = make_float2(br, bi);
+    }
+  }
+}
+
+// Transposed along one axis, one or two (source, table) terms summed:
+//   out[a][n][b] = sum_o Ta[o][n] ia[a][o][b] + sum_o Tb[o][n] ib[a][o][b]
+//   (in: (pre, q, post), out: (pre, l, post)).
+template <int LM, int QM>
+__device__ __forceinline__ void trn(const float2* ia, const float (&Ta)[QM * LM],
+                                    const float2* ib, const float (&Tb)[QM * LM],
+                                    float2* out, int pre, int post, int l, int q,
+                                    int lane) {
+  for (int f = lane; f < pre * post; f += 32) {
+    const int a = f / post, b = f - a * post;
+    const int at = a * q * post + b;
+    float2 va[QM], vb[QM];
+#pragma unroll
+    for (int o = 0; o < QM; ++o)
+      if (o < q) {
+        va[o] = ia[at + o * post];
+        if (ib) vb[o] = ib[at + o * post];
+      }
+#pragma unroll
+    for (int n = 0; n < LM; ++n) {
+      if (n >= l) break;
+      float r = 0.0f, i = 0.0f;
+#pragma unroll
+      for (int o = 0; o < QM; ++o) {
+        if (o >= q) break;
+        r = fmaf(Ta[o * l + n], va[o].x, r);
+        i = fmaf(Ta[o * l + n], va[o].y, i);
+        if (ib) {
+          r = fmaf(Tb[o * l + n], vb[o].x, r);
+          i = fmaf(Tb[o * l + n], vb[o].y, i);
+        }
+      }
+      out[(a * l + n) * post + b] = make_float2(r, i);
+    }
+  }
+}
+
+// DIM = 2 or 3; LL, QQ the extents, or 0 for runtime extents.
+template <int DIM, int LL, int QQ>
+__global__ void __launch_bounds__(32 * kMaxWarps)
 h1_apply_kernel(const float2* __restrict__ u, const float* __restrict__ aw,
                 const float* __restrict__ bw, float2* __restrict__ y,
                 float2* __restrict__ m, const H1Params P) {
-  extern __shared__ float2 smem[];
-  __shared__ float sT[2 * kMaxQ * kMaxL];
-  __shared__ int fslot[kMaxJobs], ftab[3 * kMaxJobs];
-  __shared__ int tslot[kMaxJobs], ttab[3 * kMaxJobs], ident[kMaxJobs];
-  __shared__ int tout[kMaxJobs];
-  __shared__ int nfwd, ntr;
+  constexpr int LM = LL ? LL : kMaxL, QM = QQ ? QQ : kMaxQ;
+  const int l = LL ? LL : P.l, q = QQ ? QQ : P.q;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int blk = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (blk >= P.nblocks) return;  // no block barrier below
+  const int e = blk % P.nelem;
 
-  const int q = P.q, l = P.l, d = P.d;
-  int ld = 1, qd = 1, ms = 1;
-  const int mx = q > l ? q : l;
-  for (int i = 0; i < d; ++i) {
-    ld *= l;
-    qd *= q;
-    ms *= mx;
+  float tB[QM * LM], tD[QM * LM];
+#pragma unroll
+  for (int i = 0; i < QM * LM; ++i) {
+    tB[i] = P.B[i];
+    tD[i] = P.D[i];
   }
-  const bool wantA = P.want & 1, wantM = P.want & 2;
-  const bool kz = P.k[0] == 0.0f && P.k[1] == 0.0f && P.k[2] == 0.0f;
+  const bool wantA = P.want & 1, wantM = P.want & 2, kz = P.kz;
   const bool need_uq = wantM || (wantA && !kz);
-  float2* sU = smem;                  // l^d
-  float2* R0 = sU + ld;               // kMaxJobs * ms
-  float2* R1 = R0 + kMaxJobs * ms;    // kMaxJobs * ms
-  float2* sP = R1 + kMaxJobs * ms;    // (d + 2) q^d: Jinv f, s, beta.w uq
-  const size_t blk = blockIdx.x;
-  const int e = (int)(blk % (size_t)P.nelem);
+  const int ld = DIM == 3 ? l * l * l : l * l;  // element-row values
+  const int qd = DIM == 3 ? q * q * q : q * q;  // quadrature points
 
-  for (int i = threadIdx.x; i < ld; i += blockDim.x) sU[i] = u[blk * ld + i];
-  for (int i = threadIdx.x; i < 2 * q * l; i += blockDim.x) sT[i] = P.tab[i];
-  if (threadIdx.x == 0) {
-    // Forward jobs: the value (job 0 when needed), then d gradients.
-    int j = 0;
-    if (need_uq) {
-      fslot[j] = 0;
-      for (int i = 0; i < 3; ++i) ftab[i * kMaxJobs + j] = 0;
-      ++j;
-    }
-    if (wantA)
-      for (int r = 0; r < d; ++r, ++j) {
-        fslot[j] = 0;
-        for (int i = 0; i < 3; ++i) ftab[i * kMaxJobs + j] = i == r ? 1 : 0;
-      }
-    nfwd = j;
-    // Transposed jobs read sP: slot r < d the term (Jinv f)_r with D on
-    // axis r, slot d the ik term s, slot d + 1 the mass term; tout 0 = y,
-    // 1 = m.
-    j = 0;
-    if (wantA) {
-      for (int r = 0; r < d; ++r, ++j) {
-        tslot[j] = r;
-        tout[j] = 0;
-        for (int i = 0; i < 3; ++i) ttab[i * kMaxJobs + j] = i == r ? 1 : 0;
-      }
-      if (!kz) {
-        tslot[j] = d;
-        tout[j] = 0;
-        for (int i = 0; i < 3; ++i) ttab[i * kMaxJobs + j] = 0;
-        ++j;
-      }
-    }
-    if (wantM) {
-      tslot[j] = d + 1;
-      tout[j] = 1;
-      for (int i = 0; i < 3; ++i) ttab[i * kMaxJobs + j] = 0;
-      ++j;
-    }
-    ntr = j;
-    for (int i = 0; i < kMaxJobs; ++i) ident[i] = i;
+  extern __shared__ __align__(16) float2 smem[];
+  float2* X = smem + (size_t)warp * (P.xsize + P.ysize);  // holds the quadrature planes
+  float2* Y = X + P.xsize;
+  // The forward chain ends in X: stage the element-row in X for even d,
+  // in Y for odd d.
+  float2* U = DIM % 2 ? Y : X;
+  const float2* ub = u + (size_t)blk * ld;
+  if (ld % 2 == 0 && (reinterpret_cast<size_t>(ub) & 15) == 0) {
+    const float4* s4 = reinterpret_cast<const float4*>(ub);
+    float4* d4 = reinterpret_cast<float4*>(U);
+    for (int i = lane; i < ld / 2; i += 32) d4[i] = s4[i];
+  } else {
+    for (int i = lane; i < ld; i += 32) U[i] = ub[i];
   }
-  __syncthreads();
+  __syncwarp();
 
-  const float2* F = bt::contract_all(sU, 0, fslot, ident, R0, R1, ms, sT,
-                                     ftab, nullptr, nfwd, d, q, l,
-                                     false);
-  const int g0 = need_uq ? 1 : 0;  // first gradient job
+  // Planes of X after the forward chain: g_0..g_{d-1} (A), then the S
+  // plane (A, k != 0), then the M plane (M); uq sits in the first of the
+  // last two that exists.
+  const int pS = wantA ? DIM : 0;
+  const int pM = pS + (wantA && !kz ? 1 : 0);
+  const int pU = pS;
+  float2* const g0 = X;
 
-  for (int x = threadIdx.x; x < qd; x += blockDim.x) {
-    const float2 uq = need_uq ? F[x] : make_float2(0.0f, 0.0f);
+  if (DIM == 3) {
+    const int l2 = l * l, sq = q * l * l, s1 = q * q * l;
+    // Stage 0: B.u, D.u (q, l, l) into X.
+    fwd<LM, QM>(U, 1, l2, l, q, tB, X, tD, wantA ? X + sq : nullptr, lane);
+    __syncwarp();
+    // Stage 1: BB, BD from B.u; DB from D.u (q, q, l) into Y.
+    fwd<LM, QM>(X, q, l, l, q, tB, Y, tD, wantA ? Y + s1 : nullptr, lane);
+    if (wantA) fwd<LM, QM>(X + sq, q, l, l, q, tB, Y + 2 * s1, tB, nullptr, lane);
+    __syncwarp();
+    // Stage 2: uq = BBB, g_2 = BBD, g_1 = BDB, g_0 = DBB (q, q, q) into X.
+    if (need_uq)
+      fwd<LM, QM>(Y, q * q, 1, l, q, tB, X + pU * qd, tD, wantA ? g0 + 2 * qd : nullptr,
+                  lane);
+    else
+      fwd<LM, QM>(Y, q * q, 1, l, q, tD, g0 + 2 * qd, tB, nullptr, lane);
+    if (wantA) {
+      fwd<LM, QM>(Y + s1, q * q, 1, l, q, tB, g0 + qd, tB, nullptr, lane);
+      fwd<LM, QM>(Y + 2 * s1, q * q, 1, l, q, tB, g0, tB, nullptr, lane);
+    }
+  } else {
+    // Stage 0: B.u, D.u (q, l) into Y.
+    fwd<LM, QM>(U, 1, l, l, q, tB, Y, tD, wantA ? Y + q * l : nullptr, lane);
+    __syncwarp();
+    // Stage 1: uq = BB, g_1 = BD from B.u; g_0 = DB from D.u (q, q) into X.
+    if (need_uq)
+      fwd<LM, QM>(Y, q, 1, l, q, tB, X + pU * qd, tD, wantA ? g0 + qd : nullptr, lane);
+    else
+      fwd<LM, QM>(Y, q, 1, l, q, tD, g0 + qd, tB, nullptr, lane);
+    if (wantA) fwd<LM, QM>(Y + q * l, q, 1, l, q, tB, g0, tB, nullptr, lane);
+  }
+  __syncwarp();
+
+  // Pointwise, in place: h_r = (Jinv f)_r into g_r, s = -i k.f into the S
+  // plane, beta.w uq into the M plane.
+  for (int x = lane; x < qd; x += 32) {
+    const float2 uq = need_uq ? X[pU * qd + x] : make_float2(0.0f, 0.0f);
     if (wantA) {
       const float a = aw[(size_t)e * qd + x];
-      float2 f[3];
+      float2 gv[DIM], f[DIM];
+#pragma unroll
+      for (int s = 0; s < DIM; ++s) gv[s] = g0[s * qd + x];
       float sr = 0.0f, si = 0.0f;
-      for (int r = 0; r < d; ++r) {  // w_r = (Jinv^T g)_r + i k_r uq; f = a w
+#pragma unroll
+      for (int r = 0; r < DIM; ++r) {  // w_r = (Jinv^T g)_r + i k_r uq; f = a w
         float gr = 0.0f, gi = 0.0f;
-        for (int s = 0; s < d; ++s) {
-          const float2 g = F[(g0 + s) * ms + x];
-          gr = fmaf(P.JinvT[r * 3 + s], g.x, gr);
-          gi = fmaf(P.JinvT[r * 3 + s], g.y, gi);
+#pragma unroll
+        for (int s = 0; s < DIM; ++s) {
+          gr = fmaf(P.JinvT[r * 3 + s], gv[s].x, gr);
+          gi = fmaf(P.JinvT[r * 3 + s], gv[s].y, gi);
         }
         f[r] = make_float2(a * (gr - P.k[r] * uq.y), a * (gi + P.k[r] * uq.x));
-        sr = fmaf(P.k[r], f[r].y, sr);  // s = -i k.f
+        sr = fmaf(P.k[r], f[r].y, sr);
         si = fmaf(-P.k[r], f[r].x, si);
       }
-      for (int r = 0; r < d; ++r) {
+#pragma unroll
+      for (int r = 0; r < DIM; ++r) {
         float hr = 0.0f, hi = 0.0f;
-        for (int s = 0; s < d; ++s) {
+#pragma unroll
+        for (int s = 0; s < DIM; ++s) {
           hr = fmaf(P.Jinv[r * 3 + s], f[s].x, hr);
           hi = fmaf(P.Jinv[r * 3 + s], f[s].y, hi);
         }
-        sP[r * qd + x] = make_float2(hr, hi);
+        g0[r * qd + x] = make_float2(hr, hi);
       }
-      sP[d * qd + x] = make_float2(sr, si);
+      if (!kz) X[pS * qd + x] = make_float2(sr, si);
     }
     if (wantM) {
       const float b = bw[(size_t)e * qd + x];
-      sP[(d + 1) * qd + x] = make_float2(b * uq.x, b * uq.y);
+      X[pM * qd + x] = make_float2(b * uq.x, b * uq.y);
     }
   }
-  __syncthreads();
+  __syncwarp();
 
-  const float2* T = bt::contract_all(sP, qd, tslot, ident, R0, R1, ms, sT,
-                                     ttab, nullptr, ntr, d, q, l,
-                                     true);
-
-  for (int i = threadIdx.x; i < ld; i += blockDim.x) {
-    float2 yv = make_float2(0.0f, 0.0f), mv = make_float2(0.0f, 0.0f);
-    for (int j = 0; j < ntr; ++j) {
-      const float2 v = T[j * ms + i];
-      if (tout[j] == 1) {
-        mv = v;
-      } else {
-        yv.x += v.x;
-        yv.y += v.y;
-      }
+  float2* yb = wantA ? y + (size_t)blk * ld : nullptr;
+  float2* mb = wantM ? m + (size_t)blk * ld : nullptr;
+  const float2* S = wantA && !kz ? X + pS * qd : nullptr;
+  if (DIM == 3) {
+    const int sa = q * q * l, sb = q * l * l;
+    // T0, axis 2 (q, q, l) into Y: A0 = B^T h0, A1 = B^T h1,
+    // A2 = D^T h2 + B^T s, Am = B^T hm.
+    float2* Am = Y + (wantA ? 3 * sa : 0);
+    if (wantA) {
+      trn<LM, QM>(g0, tB, nullptr, tB, Y, q * q, 1, l, q, lane);
+      trn<LM, QM>(g0 + qd, tB, nullptr, tB, Y + sa, q * q, 1, l, q, lane);
+      trn<LM, QM>(g0 + 2 * qd, tD, S, tB, Y + 2 * sa, q * q, 1, l, q, lane);
     }
-    if (wantA) y[blk * ld + i] = yv;
-    if (wantM) m[blk * ld + i] = mv;
+    if (wantM) trn<LM, QM>(X + pM * qd, tB, nullptr, tB, Am, q * q, 1, l, q, lane);
+    __syncwarp();
+    // T1, axis 1 (q, l, l) into X: YD = B^T A0, YB = D^T A1 + B^T A2,
+    // Mm = B^T Am.
+    if (wantA) {
+      trn<LM, QM>(Y, tB, nullptr, tB, X, q, l, l, q, lane);
+      trn<LM, QM>(Y + sa, tD, Y + 2 * sa, tB, X + sb, q, l, l, q, lane);
+    }
+    float2* Mm = X + (wantA ? 2 * sb : 0);
+    if (wantM) trn<LM, QM>(Am, tB, nullptr, tB, Mm, q, l, l, q, lane);
+    __syncwarp();
+    // T2, axis 0 (l, l, l) to device memory: y = D^T YD + B^T YB, m = B^T Mm.
+    if (wantA) trn<LM, QM>(X, tD, X + sb, tB, yb, 1, l * l, l, q, lane);
+    if (wantM) trn<LM, QM>(Mm, tB, nullptr, tB, mb, 1, l * l, l, q, lane);
+  } else {
+    const int sa = q * l;
+    // T0, axis 1 (q, l) into Y: A0 = B^T h0, A1 = D^T h1 + B^T s, Am = B^T hm.
+    float2* Am = Y + (wantA ? 2 * sa : 0);
+    if (wantA) {
+      trn<LM, QM>(g0, tB, nullptr, tB, Y, q, 1, l, q, lane);
+      trn<LM, QM>(g0 + qd, tD, S, tB, Y + sa, q, 1, l, q, lane);
+    }
+    if (wantM) trn<LM, QM>(X + pM * qd, tB, nullptr, tB, Am, q, 1, l, q, lane);
+    __syncwarp();
+    // T1, axis 0 (l, l) to device memory: y = D^T A0 + B^T A1, m = B^T Am.
+    if (wantA) trn<LM, QM>(Y, tD, Y + sa, tB, yb, 1, l, l, q, lane);
+    if (wantM) trn<LM, QM>(Am, tB, nullptr, tB, mb, 1, l, l, q, lane);
   }
+}
+
+// float2 slots of the warp's two buffers (X: the quadrature planes, and
+// the stages that land in it; Y: the other stages), each rounded up to
+// an even count so that both stay 16-byte aligned.
+void buffer_sizes(int d, int l, int q, bool wantA, bool wantM, bool kz, int* xs,
+                  int* ys) {
+  int ld = 1, qd = 1;
+  for (int i = 0; i < d; ++i) {
+    ld *= l;
+    qd *= q;
+  }
+  const int nA = wantA ? 1 : 0, nM = wantM ? 1 : 0;
+  const int planes = nA * d + (wantA && !kz ? 1 : 0) + nM;
+  int x = planes * qd, yv = 0;
+  if (d == 3) {
+    x = x > (1 + nA) * q * l * l ? x : (1 + nA) * q * l * l;       // stage 0, T1
+    x = x > (2 * nA + nM) * q * l * l ? x : (2 * nA + nM) * q * l * l;
+    yv = ld;                                                        // staged u
+    yv = yv > (1 + 2 * nA) * q * q * l ? yv : (1 + 2 * nA) * q * q * l;  // stage 1
+    yv = yv > (3 * nA + nM) * q * q * l ? yv : (3 * nA + nM) * q * q * l;  // T0
+  } else {
+    x = x > ld ? x : ld;                                            // staged u
+    yv = (1 + nA) * q * l;                                          // stage 0
+    yv = yv > (2 * nA + nM) * q * l ? yv : (2 * nA + nM) * q * l;    // T0
+  }
+  *xs = (x + 1) & ~1;
+  *ys = (yv + 1) & ~1;
+}
+
+template <int DIM, int LL, int QQ>
+cudaError_t launch(const float2* u, const float* aw, const float* bw, float2* y,
+                   float2* m, const H1Params& P, int warps, cudaStream_t stream) {
+  const size_t smem = (size_t)warps * (P.xsize + P.ysize) * sizeof(float2);
+  const int grid = (P.nblocks + warps - 1) / warps;
+  h1_apply_kernel<DIM, LL, QQ><<<grid, 32 * warps, smem, stream>>>(u, aw, bw, y, m, P);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -190,12 +343,15 @@ extern "C" int h1_apply_launch(const void* u, const void* aw, const void* bw,
                                void* y, void* m, const float* tabs,
                                const float* metric, int q, int l, int d,
                                int nelem, int nblocks, int want, void* stream) {
-  if (q < 1 || q > kMaxQ || l < 1 || l > kMaxL || d < 1 || d > 3 ||
+  if (q < 1 || q > kMaxQ || l < 1 || l > kMaxL || d < 2 || d > 3 ||
       nelem < 1 || nblocks < 1 || nblocks % nelem != 0 || want < 1 ||
       want > 3 || ((want & 1) && y == nullptr) || ((want & 2) && m == nullptr))
     return (int)cudaErrorInvalidValue;
-  H1Params P;
-  for (int i = 0; i < 2 * q * l; ++i) P.tab[i] = tabs[i];
+  H1Params P = {};
+  for (int i = 0; i < q * l; ++i) {
+    P.B[i] = tabs[i];
+    P.D[i] = tabs[q * l + i];
+  }
   for (int i = 0; i < 9; ++i) {
     P.JinvT[i] = metric[i];
     P.Jinv[i] = metric[9 + i];
@@ -203,22 +359,36 @@ extern "C" int h1_apply_launch(const void* u, const void* aw, const void* bw,
   for (int i = 0; i < 3; ++i) P.k[i] = metric[18 + i];
   P.q = q;
   P.l = l;
-  P.d = d;
   P.nelem = nelem;
+  P.nblocks = nblocks;
   P.want = want;
-  size_t ld = 1, qd = 1, ms = 1;
-  const int mx = q > l ? q : l;
-  for (int i = 0; i < d; ++i) {
-    ld *= l;
-    qd *= q;
-    ms *= mx;
-  }
-  const size_t smem = (ld + 2 * kMaxJobs * ms + (d + 2) * qd) * sizeof(float2);
-  // Dynamic plus static shared memory must stay under the 48 KB a block
-  // gets without an opt-in (static: tables and job lists, under 1 KB).
-  if (smem > 47 * 1024) return (int)cudaErrorInvalidValue;
-  h1_apply_kernel<<<nblocks, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float2*)u, (const float*)aw, (const float*)bw, (float2*)y,
-      (float2*)m, P);
-  return (int)cudaGetLastError();
+  P.kz = P.k[0] == 0.0f && P.k[1] == 0.0f && P.k[2] == 0.0f;
+  buffer_sizes(d, l, q, want & 1, want & 2, P.kz, &P.xsize, &P.ysize);
+  // Element-rows per block: up to kMaxWarps within the 48 KB a block
+  // gets without an opt-in.
+  const int per_warp = (P.xsize + P.ysize) * (int)sizeof(float2);
+  int warps = (48 * 1024) / per_warp;
+  warps = warps > kMaxWarps ? kMaxWarps : warps;
+  if (warps < 1) return (int)cudaErrorInvalidValue;
+  const float2* uu = (const float2*)u;
+  const float *a = (const float*)aw, *b = (const float*)bw;
+  float2 *yy = (float2*)y, *mm = (float2*)m;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
+  // The repository's shapes: config 3 and QPLaplace at p = 3 (3, 4, 5),
+  // the FCC field engine at p = 4 (3, 5, 6), the 2D rods at p = 3
+  // (2, 4, 5) and the 2D scalar headline at p = 4 (2, 5, 6).
+  if (d == 3 && l == 4 && q == 5)
+    err = launch<3, 4, 5>(uu, a, b, yy, mm, P, warps, s);
+  else if (d == 3 && l == 5 && q == 6)
+    err = launch<3, 5, 6>(uu, a, b, yy, mm, P, warps, s);
+  else if (d == 2 && l == 4 && q == 5)
+    err = launch<2, 4, 5>(uu, a, b, yy, mm, P, warps, s);
+  else if (d == 2 && l == 5 && q == 6)
+    err = launch<2, 5, 6>(uu, a, b, yy, mm, P, warps, s);
+  else if (d == 3)
+    err = launch<3, 0, 0>(uu, a, b, yy, mm, P, warps, s);
+  else
+    err = launch<2, 0, 0>(uu, a, b, yy, mm, P, warps, s);
+  return (int)err;
 }

@@ -6,6 +6,10 @@ by ``utils/cuda_build.py`` (nvcc into ``bravais_tpu_torch/_build/``, a
 plain C interface loaded with ctypes). Nothing is built or loaded when
 this module is imported.
 
+One call is one kernel launch: the kernel takes odd n itself (a "bye" in
+the circle method) and writes the eigenpairs in ascending, stable order,
+so no pad, sort or gather runs on the device around it.
+
 ``launches`` counts kernel launches; it is incremented only where the
 kernel is launched.
 """
@@ -16,16 +20,38 @@ import ctypes
 
 import torch
 
-from bravais_tpu_torch.eigen.jacobi_eigh import pad_odd, sort_pairs
 from bravais_tpu_torch.utils import cuda_build
 
-__all__ = ["jacobi_eigh_cuda", "sweeps_run", "launches", "MAX_N"]
+__all__ = ["jacobi_eigh_cuda", "sweeps_run", "launches", "launch_shape",
+           "MAX_N", "MAX_ITEMS"]
 
 MAX_N = 64
+#: Blocks or V rows one thread of the kernel owns at most (``kMaxItems``).
+MAX_ITEMS = 8
+#: Items an item thread gets at most from ``launch_shape`` below its
+#: 512-thread cap (the group sizes this gives measured best on the H100).
+ITEMS_PER_THREAD = 3
 launches = 0
 
 _lib = None
 _ready = set()   # device indices the kernel's shared-memory opt-in is set on
+
+
+def launch_shape(n: int, batch: int) -> tuple:
+    """(G, per_block): the kernel's threads per matrix and matrices per
+    block for (batch, n, n). A round of the padded ne = n + (n mod 2)
+    has ne/2·(ne/2−1)/2 off-diagonal 2×2 H blocks and n·ne/2 V rows to
+    update; a group is the rotation warp and as many warps of item
+    threads as give each at most ``ITEMS_PER_THREAD`` of them (64 to 512
+    threads in all), and groups under 256 threads share a block."""
+    ne = n + n % 2
+    P = ne // 2
+    items = P * (P - 1) // 2 + n * P
+    warps = -(-items // (32 * ITEMS_PER_THREAD))
+    G = min(512, 32 * (1 + max(1, warps)))
+    if (G - 32) * MAX_ITEMS < items:
+        raise ValueError(f"n={n} needs more than {MAX_ITEMS} items a thread")
+    return G, max(1, min(256 // G, batch))
 
 
 def _load():
@@ -33,9 +59,8 @@ def _load():
     if _lib is None:
         lib = cuda_build.load("jacobi_eigh")
         fn = lib.jacobi_eigh_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.jacobi_eigh_init.argtypes = []
         lib.jacobi_eigh_init.restype = ctypes.c_int
@@ -44,9 +69,8 @@ def _load():
 
 
 def _launch(H: torch.Tensor, sweeps: int, rel_tol: float | None):
-    """Check H, pad odd n and launch the kernel once; returns the
-    unsorted (w, V) of the padded (nb, n, n) batch and the sweeps each
-    matrix ran."""
+    """Check H and launch the kernel once; returns (w ascending, V, the
+    sweeps each matrix ran) of the (nb, n, n) batch."""
     global launches
     if not H.is_cuda or H.dtype != torch.complex64:
         raise ValueError(f"jacobi_eigh_cuda takes a CUDA complex64 tensor,"
@@ -55,8 +79,6 @@ def _launch(H: torch.Tensor, sweeps: int, rel_tol: float | None):
             or H.shape[-1] < 1:
         raise ValueError(f"jacobi_eigh_cuda takes (..., n, n) with "
                          f"n <= {MAX_N}, got {tuple(H.shape)}")
-    if H.shape[-1] % 2:
-        H = pad_odd(H)
     n = H.shape[-1]
     Hc = H.reshape(-1, n, n).contiguous()
     nb = Hc.shape[0]
@@ -65,36 +87,30 @@ def _launch(H: torch.Tensor, sweeps: int, rel_tol: float | None):
     nsw = torch.empty((nb,), dtype=torch.int32, device=H.device)
     tol = float(rel_tol if rel_tol is not None
                 else torch.finfo(torch.float32).eps)
+    G, per_block = launch_shape(n, nb)
     lib = _load()
     with torch.cuda.device(H.device):
         if H.device.index not in _ready:
-            err = lib.jacobi_eigh_init()
-            if err != 0:
-                raise RuntimeError(f"jacobi_eigh kernel init failed: CUDA "
-                                   f"error {err} on {H.device}")
+            cuda_build.check(lib.jacobi_eigh_init(),
+                             f"jacobi_eigh kernel init on {H.device}")
             _ready.add(H.device.index)
         stream = torch.cuda.current_stream(H.device).cuda_stream
         err = lib.jacobi_eigh_launch(Hc.data_ptr(), w.data_ptr(),
-                                     V.data_ptr(), nsw.data_ptr(), nb, n,
-                                     int(sweeps), tol, stream)
+                                     V.data_ptr(), nsw.data_ptr(), nb, n, G,
+                                     per_block, int(sweeps), tol, stream)
     launches += 1
-    if err != 0:
-        raise RuntimeError(f"jacobi_eigh kernel launch failed: CUDA error "
-                           f"{err} (batch={nb}, n={n})")
+    cuda_build.check(err, f"jacobi_eigh launch (batch={nb}, n={n})")
     return w, V, nsw
 
 
 def jacobi_eigh_cuda(H: torch.Tensor, sweeps: int = 24,
                      rel_tol: float | None = None):
     """(w ascending, V) of Hermitian complex64 (..., n, n) on a CUDA
-    device, n ≤ 64 (odd n padded). Same contract as
-    ``jacobi_eigh.jacobi_eigh``: Rutishauser stop at ``rel_tol``
-    (default float32 eps), at most ``sweeps`` sweeps."""
+    device, n ≤ 64. Same contract as ``jacobi_eigh.jacobi_eigh``:
+    Rutishauser stop at ``rel_tol`` (default float32 eps), at most
+    ``sweeps`` sweeps."""
     w, V, _ = _launch(H, sweeps, rel_tol)
-    n0 = H.shape[-1]
-    w, V = sort_pairs(w, V, n0)
-    batch_shape = H.shape[:-2]
-    return w.reshape(batch_shape + (n0,)), V.reshape(batch_shape + (n0, n0))
+    return w.reshape(H.shape[:-1]), V.reshape(H.shape)
 
 
 def sweeps_run(H: torch.Tensor, sweeps: int = 24,

@@ -26,7 +26,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-__all__ = ["jacobi_eigh", "jacobi_eigh_plain", "round_robin_pairs"]
+__all__ = ["jacobi_eigh", "jacobi_eigh_plain", "plain_sweeps_run",
+           "round_robin_pairs"]
 
 
 @lru_cache(maxsize=None)
@@ -74,6 +75,19 @@ def jacobi_eigh_plain(H: torch.Tensor, sweeps: int = 24,
     its own Rutishauser test (``rel_tol``; default machine eps) or at
     ``sweeps`` sweeps. One host read of the convergence flags per sweep.
     """
+    return _plain(H, sweeps, rel_tol)[:2]
+
+
+def plain_sweeps_run(H: torch.Tensor, sweeps: int = 24,
+                     rel_tol: float | None = None) -> torch.Tensor:
+    """The sweeps the plain version runs on each matrix of ``H``
+    (..., n, n) before its Rutishauser stop (int32, ``H.shape[:-2]``):
+    the counterpart of ``jacobi_cuda.sweeps_run``."""
+    return _plain(H, sweeps, rel_tol)[2]
+
+
+def _plain(H: torch.Tensor, sweeps: int, rel_tol: float | None):
+    """(w, V, sweeps run per matrix) of the plain version."""
     n0 = H.shape[-1]
     batch_shape = H.shape[:-2]
     rdtype = H.real.dtype
@@ -90,6 +104,7 @@ def jacobi_eigh_plain(H: torch.Tensor, sweeps: int = 24,
     eps2 = (rel_tol if rel_tol is not None else fi.eps) ** 2
     tiny = fi.tiny * 100
     offmask = ~torch.eye(n, dtype=torch.bool, device=H.device)
+    nsw = torch.zeros(nb, dtype=torch.int32, device=H.device)
     for s in range(sweeps + 1):
         d = torch.diagonal(H, dim1=-2, dim2=-1).abs()
         dd = torch.clamp(d[:, :, None] * d[:, None, :], min=fi.tiny * 1e6)
@@ -97,6 +112,7 @@ def jacobi_eigh_plain(H: torch.Tensor, sweeps: int = 24,
         active = ratio.amax(dim=(-2, -1)) > eps2             # (nb,)
         if s == sweeps or not bool(active.any()):
             break
+        nsw += active.to(torch.int32)
         for r in range(n - 1):
             p, q = P[r], Q[r]
             app = H[:, p, p].real
@@ -126,7 +142,8 @@ def jacobi_eigh_plain(H: torch.Tensor, sweeps: int = 24,
             H = 0.5 * (H + H.mH)
     w = torch.diagonal(H, dim1=-2, dim2=-1).real
     w, V = sort_pairs(w, V, n0)
-    return w.reshape(batch_shape + (n0,)), V.reshape(batch_shape + (n0, n0))
+    return (w.reshape(batch_shape + (n0,)), V.reshape(batch_shape + (n0, n0)),
+            nsw.reshape(batch_shape))
 
 
 def jacobi_eigh(H: torch.Tensor, sweeps: int = 24,

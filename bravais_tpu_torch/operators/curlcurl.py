@@ -586,15 +586,19 @@ class BlochCurlCurl:
         theta = 0.5 * (b + a)
         delta = max(0.5 * (b - a), 1e-12 * theta)
         sigma = theta / delta
-        rho = 1.0 / sigma
+        # The ρ recursion runs in the device's real precision, as the
+        # reference's fori_loop carries it.
+        rt = torch.empty((), dtype=self.rdtype).numpy().dtype.type
+        rho = rt(1.0 / sigma)
         d = lsolve(rhs) * (1.0 / theta)
         x = torch.zeros_like(rhs)
         r = rhs
         for _ in range(self.cheby_steps() - 1):
             x = x + d
             r = r - self.apply_Lk(d, ph=ph)
-            rho_new = 1.0 / (2.0 * sigma - rho)
-            d = (rho_new * rho) * d + (2.0 * rho_new / delta) * lsolve(r)
+            rho_new = rt(1.0) / (rt(2.0 * sigma) - rho)
+            d = (float(rho_new * rho) * d
+                 + float(rt(2.0) * rho_new / rt(delta)) * lsolve(r))
             rho = rho_new
         return self.apply_Gk(x + d, ph=ph)
 

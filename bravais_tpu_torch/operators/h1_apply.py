@@ -82,19 +82,29 @@ class H1Consts:
 def work(nblocks: int, c: H1Consts, k, want: str = "AM"):
     """(bytes, flops) one call must move and compute: ``ue`` read once,
     each wanted output written once, the used planes read once; the
-    kernel's contraction multiply-adds (complex × real = 4 flops) and its
-    pointwise terms, skipping the ik terms at k = 0 as the kernel does."""
+    multiply-adds (complex × real = 4 flops) of the kernel's shared-stage
+    plan (forward: B·u and D·u, then BB, BD, DB, then the value and the
+    gradients; transposed: terms that share their remaining tables summed
+    before the next stage; the ik terms skipped at k = 0, as the kernel
+    does) and its pointwise terms."""
     q, l, d = c.q, c.l, c.d
     wa, wm = "A" in want, "M" in want
     kz = not np.any(np.asarray(k, np.float64))
     need_uq = wm or (wa and not kz)
-    fwd = need_uq + d * wa
-    trn = (d + (not kz)) * wa + wm
-    S = sum(q ** (i + 1) * l ** (d - i) for i in range(d))
+    if d == 3:
+        fwd = ((1 + wa) * q * l ** 3 + (1 + 2 * wa) * q * q * l * l
+               + (need_uq + 3 * wa) * q ** 3 * l)
+        trn = (wa * ((3 + (not kz)) * q ** 3 * l + 3 * q * q * l * l
+                     + 2 * q * l ** 3)
+               + wm * (q ** 3 * l + q * q * l * l + q * l ** 3))
+    else:
+        fwd = (1 + wa) * q * l * l + (need_uq + 2 * wa) * q * q * l
+        trn = (wa * ((2 + (not kz)) * q * q * l + 2 * q * l * l)
+               + wm * (q * q * l + q * l * l))
     point = q ** d * (wa * (8 * d * d + 12 * d) + 2 * wm)
     nbytes = (nblocks * l ** d * 8 * (1 + wa + wm)
               + c.nelem * q ** d * 4 * (wa + wm))
-    return nbytes, nblocks * (4 * (fwd + trn) * S + point)
+    return nbytes, nblocks * (4 * (fwd + trn) + point)
 
 
 def helmholtz_apply_plain(ue: torch.Tensor, c: H1Consts, k,

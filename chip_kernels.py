@@ -1,0 +1,78 @@
+#!/usr/bin/env python3
+"""Times of the port's three CUDA kernels at the shapes the main paths
+give them, on one NVIDIA GPU, for this checkout's package or another's.
+
+    python3 chip_kernels.py              # this checkout
+    python3 chip_kernels.py --tree DIR   # the package under DIR, e.g. a
+                                         # `git archive` of an earlier commit
+    python3 chip_kernels.py --sweep      # and config 3's sweep around them
+
+It builds that package's kernels, sets up config 3 (the inputs of the
+L-twin, h1 and nd calls) and prints the card's name and power limit, one
+line per kernel and shape (``chip_smoke.kernel_times``: the kernel's call
+time between CUDA events and its device time from a ``torch.profiler``
+trace, for Jacobi ``torch.linalg.eigh``'s two times; the plain versions
+are not timed) and the records as one JSON line. With ``--sweep`` it runs
+config 3's warm sweep (``chip_smoke.phase_dielectric``: a cold pass, 3
+timed passes, every oracle and launch gate) once before the timings and
+once after them, and prints both rates: whether the profiler sessions of
+the timings slow the later launches of their process. Run on two trees
+in one chip call (parent, change, change, parent) it compares them on one
+card. Exits 1 without a CUDA device.
+"""
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import chip_smoke  # this checkout's timing helpers; caps the host BLAS
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", default=str(chip_smoke.REPO),
+                    help="checkout whose bravais_tpu_torch is timed")
+    ap.add_argument("--sweep", action="store_true",
+                    help="run config 3's sweep before and after the timings")
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_kernels: no CUDA device; nothing was run",
+              file=sys.stderr)
+        return 1
+    tree = Path(args.tree).resolve()
+    sys.path.insert(0, str(tree))
+    import bravais_tpu_torch
+    if Path(bravais_tpu_torch.__file__).resolve().parents[1] != tree:
+        raise RuntimeError(f"imported {bravais_tpu_torch.__file__}, not the "
+                           f"package under {tree}")
+    from bravais_tpu_torch.utils import cuda_build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    chip_smoke.log("device", f"{smi}; timing the package under {tree}")
+    cuda_build.build_all()
+    dev = torch.device("cuda", 0)
+    setup = chip_smoke.dielectric(dev)
+    rates = {}
+    if args.sweep:
+        rates["untraced"] = chip_smoke.phase_dielectric(dev, setup)[1]
+    times = chip_smoke.kernel_times(dev, setup[2], plain=False)
+    chip_smoke.log_times(times)
+    if args.sweep:
+        rates["after_trace"] = chip_smoke.phase_dielectric(dev, setup)[1]
+        chip_smoke.log("sweep", f"config 3 eig/s: {rates['untraced']:.4f} "
+                       f"untraced, {rates['after_trace']:.4f} after the "
+                       f"profiler sessions; tree {tree}")
+    print(json.dumps({"tree": str(tree), "device": smi, "kernels": times,
+                      "config3_eig_s": rates}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -18,8 +18,9 @@ For each sweep (one cold pass first) it prints, one line each:
 3. a ``torch.profiler`` trace of the device solve of two k-points: the
    device operations (kernels, copies, fills), the device's busy time
    and idle share of the traced window and of the same solves run
-   untraced (the profiler slows the host), the device time by group
-   and the operations ranked by device time.
+   untraced (the profiler slows the host), the device operations per
+   LOBPCG iteration (a count, comparable across calls), the device time
+   by group and the operations ranked by device time.
 
 Every figure is measured in this run; the card's name and power limit
 come first.
@@ -212,7 +213,8 @@ def phase_trace(tag, kc, sweep):
     busy += cur_e - cur_s
     window = spans[-1][1] - spans[0][0]
     chip_smoke.log(tag, f"device solve of k {list(TRACE_K)} ({iters} "
-                   f"iterations): {len(dev)} device operations, busy "
+                   f"iterations): {len(dev)} device operations "
+                   f"({len(dev) / iters:.1f} per LOBPCG iteration), busy "
                    f"{busy / 1e3:.3f} ms of a {window / 1e3:.3f} ms traced "
                    f"window (idle share {1 - busy / window:.4f}); the same "
                    f"solves untraced take {plain_wall / 1e3:.3f} ms (idle "

@@ -18,7 +18,8 @@ import torch
 from bravais_tpu_torch.bands.sweep import BandSweep
 from bravais_tpu_torch.eigen import jacobi_cuda
 from bravais_tpu_torch.eigen.jacobi_eigh import (jacobi_eigh,
-                                                jacobi_eigh_plain)
+                                                jacobi_eigh_plain,
+                                                plain_sweeps_run)
 from bravais_tpu_torch.lattices import kpath, make_lattice
 from bravais_tpu_torch.meshing.grid import PeriodicGrid
 from bravais_tpu_torch.operators import h1_apply, nd_apply
@@ -74,6 +75,51 @@ def test_kernel_matches_plain(cuda, n, batch):
         R = Hs[i].astype(np.complex64) @ V[i] - V[i] * w[i][None, :]
         assert np.linalg.norm(R) / np.linalg.norm(Hs[i]) < 2e-5
         assert np.linalg.norm(V[i].conj().T @ V[i] - np.eye(n)) < 2e-4
+
+
+@pytest.mark.parametrize("n,batch", [(27, 216), (2, 5), (64, 2), (16, 1),
+                                     (5, 3)])
+def test_kernel_order_and_sweeps_match_plain(cuda, n, batch):
+    """Odd n without a pad (27 × 216, the L-twin batch), the smallest and
+    the largest n: eigenpairs come back ascending in the plain version's
+    order (vectors up to a phase where the eigenvalue is separated), each
+    matrix's sweeps within one of the plain version's."""
+    Hs = np.stack([_rand_herm(n, 31 * n + i) for i in range(batch)])
+    H = torch.as_tensor(Hs.astype(np.complex64), device=cuda)
+    w, V = jacobi_eigh(H)
+    w_pl, V_pl = jacobi_eigh_plain(H)
+    nsw = jacobi_cuda.sweeps_run(H).cpu().numpy()
+    nsw_pl = plain_sweeps_run(H).cpu().numpy()
+    w, V, w_pl, V_pl = (t.cpu().numpy() for t in (w, V, w_pl, V_pl))
+    assert np.all(np.diff(w, axis=-1) >= 0)
+    assert np.all(np.abs(nsw - nsw_pl) <= 1), (nsw.tolist(), nsw_pl.tolist())
+    for i in range(batch):
+        span = np.abs(w_pl[i]).max()
+        assert np.max(np.abs(w[i] - w_pl[i])) < 5e-5 * span
+        gap = np.minimum(np.diff(w_pl[i], prepend=-np.inf),
+                         np.diff(w_pl[i], append=np.inf))
+        overlap = np.abs(np.sum(V_pl[i].conj() * V[i], axis=0))
+        sep = gap > 1e-2 * span
+        assert np.all(overlap[sep] > 1 - 1e-3), overlap[sep].min()
+
+
+def test_kernel_is_one_device_operation(cuda):
+    """``jacobi_eigh_cuda`` issues the kernel and nothing else on the
+    device (no pad, sort or gather), at odd and even n."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for n, batch in ((27, 216), (48, 1)):
+        H = torch.as_tensor(np.stack([_rand_herm(n, i) for i in range(batch)])
+                            .astype(np.complex64), device=cuda)
+        jacobi_eigh(H)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            jacobi_eigh(H, rel_tol=1e-4)
+            torch.cuda.synchronize()
+        dev = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+        assert len(dev) == 1 and "jacobi_eigh_kernel" in dev[0], dev
 
 
 def test_kernel_graded_low_accuracy(cuda):
@@ -174,6 +220,34 @@ def test_h1_kernel_matches_plain(cuda, lat, shape, p, kfrac):
         assert h1_apply.launches == before + 1
         ref = h1_apply.helmholtz_apply_plain(ue, c, k, want)
         for a, b in zip(out, ref):
+            if b is not None:
+                assert _rel(a, b) < 2e-5, want
+
+
+@pytest.mark.parametrize("lat,shape,p,kfrac,rows", [
+    ("CUB", (6, 6, 6), 3, 0.0, 32), ("CUB", (6, 6, 6), 3, 0.2, 32),
+    ("SQR", (4, 4), 3, 0.3, 4), ("SQR", (3, 3), 4, 0.3, 4),
+    ("FCC", (2, 2, 2), 4, 0.3, 4), ("FCC", (3, 3, 3), 1, 0.3, 4)])
+def test_h1_kernel_shapes_match_plain(cuda, lat, shape, p, kfrac, rows):
+    """Each instantiated (d, l, q) of the h1 kernel — config 3's at the
+    projector's 32 rows, the 2D p = 3 and p = 4 shapes and the FCC p = 4
+    field shape at k ≠ 0 — and the runtime-extent case (p = 1), every
+    half."""
+    lattice = make_lattice(lat)
+    sp = H1Space.make(PeriodicGrid.make(lattice, shape), p)
+    xq = sp.qpoints_phys()
+    c = h1_apply.H1Consts.from_space(
+        sp, eval_coefficient(lambda x: 1 + 0.3 * x[..., 0] ** 2, xq),
+        eval_coefficient(lambda x: 1 + np.sum(x ** 2, axis=-1), xq), cuda)
+    k = [float(v) for v in lattice.k_cart([kfrac] * sp.dim)]
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    ue = torch.randn((rows * c.nelem,) + (c.l,) * c.d, generator=gen,
+                     dtype=torch.complex64, device=cuda)
+    for want in ("AM", "A", "M"):
+        out = h1_apply.helmholtz_apply(ue, c, k, want)
+        ref = h1_apply.helmholtz_apply_plain(ue, c, k, want)
+        for a, b in zip(out, ref):
+            assert (a is None) == (b is None)
             if b is not None:
                 assert _rel(a, b) < 2e-5, want
 

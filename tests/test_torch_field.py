@@ -4,7 +4,8 @@ by ``convert`` (the ε and μ⁻¹ quadrature planes, the mean-twin A, M
 stencils and the L stencil).
 
 * the projector's pieces (G, Gᴴ, L, the block solvers, the Chebyshev
-  gradient projector) on a block of random fields;
+  gradient projector) on a block of random fields, and the Chebyshev
+  recursion's float32 coefficients against the reference's;
 * one project-cheby solve at X: iterations within ±3 of the JAX solve's,
   refined eigenvalues within 1e-6 relative of the complex128 dense
   oracle of the same discretisation;
@@ -14,6 +15,8 @@ stencils and the L stencil).
 * the host refine ``host_rayleigh_ritz`` against the JAX one on the same
   block, to 1e-10.
 """
+
+import copy
 
 import jax.numpy as jnp
 import numpy as np
@@ -147,6 +150,37 @@ def test_projector_pieces_match_reference(pair):
     gc_r = np.stack([np.asarray(ref.gradient_component_cheby(
         jnp.asarray(x), kj, lsolve=lsolve_r)) for x in u])
     assert _rel(gc, gc_r) < 2e-5
+
+
+def test_cheby_recursion_in_device_precision(pair):
+    """The projector's ρ recursion runs in float32 as the reference's
+    fori_loop carries it. With every operator replaced by an exact
+    complex128 map (identity, and L by a diagonal within the Chebyshev
+    bounds) only the recursion's own rounding remains, so the two agree
+    to f64 rounding; ρ in Python floats would be off by ~1e-8. k is not
+    float32-representable (the patched maps ignore it)."""
+    ref, op, _ = pair
+    k = np.asarray(make_lattice("CUB").k_cart((0.31, 0.07, 0.23)))
+    assert not np.array_equal(k.astype(np.float32).astype(np.float64), k)
+    a, b = op.cheby_bounds()
+    lam = np.linspace(a, b, 64)
+    u = np.random.default_rng(6).standard_normal(64) + 1j
+
+    ref2 = copy.copy(ref)
+    for name in ("apply_M", "apply_GkH", "apply_Gk"):
+        setattr(ref2, name, lambda x, k: x)
+    ref2.apply_Lk = lambda x, k: jnp.asarray(lam) * x
+    want = np.asarray(ref2.gradient_component_cheby(
+        jnp.asarray(u), jnp.asarray(k), lsolve=lambda x: x))
+
+    op2 = copy.copy(op)
+    for name in ("apply_M", "apply_GkH", "apply_Gk"):
+        setattr(op2, name, lambda x, ph=None: x)
+    op2.apply_Lk = lambda x, ph=None: torch.as_tensor(lam) * x
+    got = op2.gradient_component_cheby(torch.as_tensor(u), k,
+                                       lsolve=lambda x: x).numpy()
+    assert want.dtype == got.dtype == np.complex128
+    assert _rel(got, want) < 1e-13
 
 
 def test_field_solve_matches_reference_and_dense_oracle(pair, ref_sweep,

@@ -1,8 +1,9 @@
 """The fused Bloch H1 element apply: the plain torch version of the CUDA
 kernel against the JAX Pallas kernel (interpret mode) at k≠0 in 2D and
-3D, and the port's ``QPLaplace`` (the field engine's deflation
-Laplacian) against the JAX one. Tolerance 2e-6 relative (float32, sums
-in another order)."""
+3D, a torch model of the kernel's shared-stage plan (``csrc/
+h1_apply.cu``) against the plain version, and the port's ``QPLaplace``
+(the field engine's deflation Laplacian) against the JAX one. Tolerance
+2e-6 relative (float32, sums in another order)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +19,7 @@ from bravais_tpu_torch.lattices import make_lattice
 from bravais_tpu_torch.meshing.grid import PeriodicGrid
 from bravais_tpu_torch.operators.coefficients import eval_coefficient
 from bravais_tpu_torch.operators.h1_apply import (H1Consts,
-                                                  helmholtz_apply_plain)
+                                                  helmholtz_apply_plain, work)
 from bravais_tpu_torch.operators.qplaplace import QPLaplace
 from bravais_tpu_torch.spaces.h1 import H1Space
 
@@ -101,3 +102,93 @@ def test_qplaplace_matches_reference(kfrac):
     u64 = u[0].astype(np.complex128)
     np.testing.assert_allclose(op.apply_A_np(u64), ref.apply_A_np(u64, None),
                                rtol=1e-12, atol=1e-12)
+
+
+def _along(x, T, axis, transpose=False):
+    """Contract local axis ``axis`` of x (R, n₀, ..., n_{d-1}) with the
+    table T (q, l): forward by T, transposed by Tᵀ."""
+    y = torch.tensordot(x, T, dims=([1 + axis], [0 if transpose else 1]))
+    return torch.movedim(y, -1, 1 + axis)
+
+
+def _plan_model(ue, c, k, want):
+    """The kernel's compile-time plan in torch: forward B·u and D·u once,
+    then BB, BD, DB (3D), then the value and the gradients (DB.., BD..,
+    ..BD); pointwise h_r = (Jinv f)_r, s = −i k·f, β·w u_q; transposed,
+    the terms that share their remaining tables summed before the next
+    stage. Returns (y, m) with None for the half not in ``want``."""
+    d, E = c.d, c.nelem
+    B, D = (t.to(torch.complex64) for t in c.tables)
+    R = ue.shape[0]
+    wa, wm = "A" in want, "M" in want
+    kz = not any(k)
+    F = lambda x, T, ax: _along(x, T, ax)              # noqa: E731
+    Tt = lambda x, T, ax: _along(x, T, ax, True)       # noqa: E731
+    s0B, s0D = F(ue, B, 0), F(ue, D, 0)
+    if d == 3:
+        BB, BD, DB = F(s0B, B, 1), F(s0B, D, 1), F(s0D, B, 1)
+        uq = F(BB, B, 2)
+        g = [F(DB, B, 2), F(BD, B, 2), F(BB, D, 2)]
+    else:
+        uq = F(s0B, B, 1)
+        g = [F(s0D, B, 1), F(s0B, D, 1)]
+    rows = (R // E,) + (1,) * (d + 1)
+    aw = c.alpha_w.repeat(rows).reshape(uq.shape)
+    bw = c.beta_w.repeat(rows).reshape(uq.shape)
+    y = m = None
+    if wa:
+        f = [aw * (sum(float(c.JinvT[r, t]) * g[t] for t in range(d))
+                   + 1j * float(k[r]) * uq) for r in range(d)]
+        h = [sum(float(c.Jinv[r, t]) * f[t] for t in range(d))
+             for r in range(d)]
+        last = Tt(h[d - 1], D, d - 1)
+        if not kz:
+            last = last + Tt(-1j * sum(float(k[r]) * f[r] for r in range(d)),
+                             B, d - 1)
+        if d == 3:
+            A0, A1 = Tt(h[0], B, 2), Tt(h[1], B, 2)
+            YD, YB = Tt(A0, B, 1), Tt(A1, D, 1) + Tt(last, B, 1)
+            y = Tt(YD, D, 0) + Tt(YB, B, 0)
+        else:
+            y = Tt(Tt(h[0], B, 1), D, 0) + Tt(last, B, 0)
+    if wm:
+        m = bw * uq
+        for ax in reversed(range(d)):
+            m = Tt(m, B, ax)
+    return y, m
+
+
+@pytest.mark.parametrize("lat,shape,p,kfrac", [
+    ("SQR", (3, 3), 3, 0.0), ("SQR", (3, 3), 3, 0.3),
+    ("CUB", (2, 2, 2), 3, 0.0), ("FCC", (2, 2, 2), 2, 0.3)])
+def test_kernel_plan_model_matches_plain(lat, shape, p, kfrac):
+    """The shared-stage plan gives the plain version's (y, m) for every
+    half at k = 0 and k ≠ 0; ``work`` counts no more multiply-adds than
+    one contraction chain per term, and fewer where the 3D stiffness half
+    shares stages."""
+    lattice = make_lattice(lat)
+    sp = H1Space.make(PeriodicGrid.make(lattice, shape), p)
+    xq = sp.qpoints_phys()
+    c = H1Consts.from_space(sp, eval_coefficient(_alpha, xq),
+                            eval_coefficient(_beta, xq), "cpu")
+    k = [float(v) for v in lattice.k_cart([kfrac] * sp.dim)]
+    ue = torch.as_tensor(_cplx(np.random.default_rng(2),
+                               (ROWS * c.nelem,) + (c.l,) * c.d))
+    for want in ("AM", "A", "M"):
+        out = _plan_model(ue, c, k, want)
+        ref = helmholtz_apply_plain(ue, c, k, want)
+        for a, b in zip(out, ref):
+            assert (a is None) == (b is None), want
+            if b is not None:
+                assert _rel(a.numpy(), b.numpy()) < TOL, want
+        q, l, d = c.q, c.l, c.d
+        chains = (("M" in want or ("A" in want and any(k)))
+                  + d * ("A" in want))
+        chains += ("A" in want) * (d + any(k)) + ("M" in want)
+        per_chain = sum(q ** (i + 1) * l ** (d - i) for i in range(d))
+        unshared = 4 * chains * per_chain + q ** d * (
+            ("A" in want) * (8 * d * d + 12 * d) + 2 * ("M" in want))
+        flops = work(1, c, k, want)[1]
+        assert flops <= unshared
+        if d == 3 and "A" in want:
+            assert flops < unshared

@@ -1,6 +1,8 @@
 """The slice as a whole: the port's warm spectral sweep against the JAX
-``BandSweep.run_warm`` and the analytic empty-lattice bands, and the
-spectral refine's host Rayleigh–Ritz fallback against the JAX one."""
+``BandSweep.run_warm`` and the analytic empty-lattice bands (also at
+k-points that float32 does not represent, which both packages round to
+the device precision), and the spectral refine's host Rayleigh–Ritz
+fallback against the JAX one."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -74,6 +76,26 @@ def test_run_warm_matches_reference_and_oracle():
         scale = max(ex.max(), 1e-3)
         for lam in (res.eigenvalues[i], rref.eigenvalues[i]):
             assert np.max(np.abs(lam - ex)) / scale < 6e-2, (i, lam, ex)
+
+
+def test_run_warm_rounds_k_as_reference():
+    """k-points that float32 does not represent: the port rounds them to
+    the device precision before solving and refining, as the reference
+    does, so both refine at the same k to f64 accuracy."""
+    lat, _, sweep = _port_sweep()
+    kc = np.asarray([lat.k_cart(f) for f in ((0.31, 0.07, 0.23),
+                                             (0.37, 0.11, 0.05))])
+    assert not np.array_equal(kc.astype(np.float32).astype(np.float64), kc)
+    res = sweep.run_warm(kc)
+    ref = CurlRef(NedRef.make(GridRef.make(make_lattice_ref("FCC"), N), P),
+                  dtype=jnp.complex64)
+    rref = SweepRef(ref, nev=NEV, block=M, tol=1e-6, maxiter=250,
+                    solve_fn=ref.make_solve_fn(engine="spectral",
+                                               pc_rep="factor"),
+                    device_tol=1e-3).run_warm(kc)
+    np.testing.assert_allclose(res.eigenvalues, rref.eigenvalues,
+                               rtol=1e-9, atol=1e-12)
+    assert res.fallbacks == 0 and np.max(res.residuals) < 1e-10
 
 
 def test_refine_cross_check_failure_raises():
