@@ -21,6 +21,7 @@ Layout (element-major, one element-row's dofs contiguous):
 use by ``utils/cuda_build.py``) or raises. ``launches`` counts kernel
 launches and ``launches_by_mode`` splits them by the halves computed
 ("AM", "A", "M"); both are incremented only where the kernel launches.
+``launch_shape`` reports the kernel's blocks and their residency.
 """
 
 from __future__ import annotations
@@ -33,8 +34,8 @@ import torch
 from bravais_tpu_torch.spaces.tensor import contract, contract_t
 from bravais_tpu_torch.utils import cuda_build
 
-__all__ = ["NdConsts", "comp_shapes", "nedelec_apply", "nedelec_apply_plain",
-           "launches", "launches_by_mode", "work"]
+__all__ = ["NdConsts", "comp_shapes", "launch_shape", "nedelec_apply",
+           "nedelec_apply_plain", "launches", "launches_by_mode", "work"]
 
 launches = 0
 launches_by_mode = {"AM": 0, "A": 0, "M": 0}
@@ -77,6 +78,10 @@ class NdConsts:
         self.host_metric = np.concatenate(
             [self.J.ravel(), self.Ginv.ravel(), [1.0 / self.detJ]]
         ).astype(np.float32)
+        # The launch's constant pointers, taken once (the arrays above
+        # hold the memory).
+        self.ptrs = (self.muw.data_ptr(), self.epsw.data_ptr(),
+                     self.host_tabs.ctypes.data, self.host_metric.ctypes.data)
 
     @classmethod
     def from_space(cls, space, eps_q64, mu_inv_q64, device) -> "NdConsts":
@@ -96,29 +101,23 @@ class NdConsts:
                    np.linalg.det(sp.grid.J), device)
 
 
-def _sumfact(q: int, ext, transpose: bool) -> int:
-    """Multiply-adds of one sum-factorised contraction between local
-    extents ``ext`` and (q, q, q), axis 0 first."""
-    e0, e1, e2 = ext
-    if transpose:
-        return q ** 3 * e0 + q * q * e0 * e1 + q * e0 * e1 * e2
-    return q * e0 * e1 * e2 + q * q * e1 * e2 + q ** 3 * e2
-
-
 def work(nblocks: int, c: NdConsts, want: str = "AM"):
     """(bytes, flops) one call must move and compute: ``ue`` (its 3·p·l²
     values per element-row) read once, each wanted output written once,
     the used coefficient planes read once; the multiply-adds of the
-    sum-factorised contractions over each component's own extents
-    (complex × real = 4 flops; per component one value contraction each
-    way for M, two derivative contractions each way for A) and the
-    pointwise mixing."""
-    q = c.q
+    kernel's plan (complex × real = 4 flops) and its pointwise mixing
+    (48 flops a point for the curl, K = JᵀJ/detJ² and μ⁻¹·w; 42 for Ginv
+    and ε·w). Per component, forward: the first closed axis with Bc (and Dc for A),
+    the second with BB (M), BD and DB (A), the open axis (p → q) for each
+    of those; transposed: the open axis first (q → p), then the two
+    closed axes, the two curl terms of an output summed in the last
+    stage."""
+    q, l, p = c.q, c.l, c.p
     wa, wm = "A" in want, "M" in want
-    macs = sum((wm + 2 * wa) * (_sumfact(q, ext, False)
-                                + _sumfact(q, ext, True))
-               for ext in comp_shapes(c.p))
-    point = q ** 3 * (90 * wa + 42 * wm)
+    src = wm + 2 * wa
+    macs = 3 * ((1 + wa) * q * l * l * p
+                + src * (2 * q ** 3 * p + 2 * q * q * l * p + q * l * l * p))
+    point = q ** 3 * (48 * wa + 42 * wm)
     nbytes = (nblocks * c.ndof * 8 * (1 + wa + wm)
               + c.nelem * q ** 3 * 4 * (wa + wm))
     return nbytes, nblocks * (4 * macs + point)
@@ -180,36 +179,59 @@ def _load():
         fn.argtypes = ([ctypes.c_void_p] * 7
                        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        occ = lib.nd_apply_occupancy
+        occ.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        occ.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _launch(ue: torch.Tensor, c: NdConsts, want: str):
-    global launches
-    shape = (c.ndof,)
-    if ue.dtype != torch.complex64 or tuple(ue.shape[1:]) != shape \
-            or ue.shape[0] % c.nelem or not ue.is_contiguous():
+def _check(ue: torch.Tensor, c: NdConsts):
+    if ue.dtype != torch.complex64 or ue.dim() != 2 \
+            or ue.shape[1] != c.ndof or ue.shape[0] % c.nelem \
+            or not ue.is_contiguous():
         raise ValueError(f"nedelec_apply takes a contiguous complex64 "
-                         f"(rows·{c.nelem}, {shape}) tensor, got "
+                         f"(rows·{c.nelem}, {c.ndof}) tensor, got "
                          f"{ue.dtype} {tuple(ue.shape)}")
     if c.muw.device != ue.device:
         raise ValueError(f"coefficients on {c.muw.device}, dofs on "
                          f"{ue.device}")
+
+
+def _launch(ue: torch.Tensor, c: NdConsts, want: str):
+    global launches
+    _check(ue, c)
     y = torch.empty_like(ue) if "A" in want else None
     m = torch.empty_like(ue) if "M" in want else None
-    lib = _load()
-    with torch.cuda.device(ue.device):
-        stream = torch.cuda.current_stream(ue.device).cuda_stream
-        err = lib.nd_apply_launch(
-            ue.data_ptr(), c.muw.data_ptr(), c.epsw.data_ptr(),
-            y.data_ptr() if y is not None else None,
-            m.data_ptr() if m is not None else None,
-            c.host_tabs.ctypes.data, c.host_metric.ctypes.data,
-            c.q, c.l, c.nelem, ue.shape[0], _WANT[want], stream)
+    fn = _load().nd_apply_launch
+    muw, epsw, tabs, metric = c.ptrs
+    args = (ue.data_ptr(), muw, epsw, y.data_ptr() if y is not None else None,
+            m.data_ptr() if m is not None else None, tabs, metric, c.q, c.l,
+            c.nelem, ue.shape[0], _WANT[want])
+    dev = ue.device
+    if dev.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     launches += 1
     launches_by_mode[want] += 1
     cuda_build.check(err, f"nd_apply launch ({want}, {ue.shape[0]} blocks)")
     return y, m
+
+
+def launch_shape(ue: torch.Tensor, c: NdConsts, want: str = "AM") -> dict:
+    """The kernel's launch for ``ue`` on its CUDA device: element-rows per
+    block, threads per block, dynamic shared bytes per block and resident
+    blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    _check(ue, c)
+    out = np.zeros(4, np.int32)
+    with torch.cuda.device(ue.device):
+        err = _load().nd_apply_occupancy(c.q, c.l, c.nelem, ue.shape[0],
+                                         _WANT[want], out.ctypes.data)
+    cuda_build.check(err, "nd_apply occupancy")
+    return dict(zip(("rows_per_block", "threads", "smem_bytes",
+                     "blocks_per_sm"), out.tolist()))
 
 
 def nedelec_apply(ue: torch.Tensor, c: NdConsts, want: str = "AM"):

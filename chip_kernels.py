@@ -7,9 +7,12 @@ give them, on one NVIDIA GPU, for this checkout's package or another's.
                                          # `git archive` of an earlier commit
     python3 chip_kernels.py --sweep      # and config 3's sweep around them
 
-It builds that package's kernels, sets up config 3 (the inputs of the
-L-twin, h1 and nd calls) and prints the card's name and power limit, one
-line per kernel and shape (``chip_smoke.kernel_times``: the kernel's call
+It builds that package's kernels, prints each kernel entry's registers,
+spills and shared memory (``chip_smoke.ptxas_report``), sets up config 3
+(the inputs of the L-twin, h1 and nd calls), prints nd's launch shape and
+resident blocks per SM at its config-3 calls (where the package reports
+them, ``nd_apply.launch_shape``) and prints the card's name and power
+limit, one line per kernel and shape (``chip_smoke.kernel_times``: the kernel's call
 time between CUDA events and its device time from a ``torch.profiler``
 trace, for Jacobi ``torch.linalg.eigh``'s two times; the plain versions
 are not timed) and the records as one JSON line. With ``--sweep`` it runs
@@ -56,9 +59,10 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     chip_smoke.log("device", f"{smi}; timing the package under {tree}")
-    cuda_build.build_all()
+    ptxas = chip_smoke.ptxas_report(cuda_build.build_all())
     dev = torch.device("cuda", 0)
     setup = chip_smoke.dielectric(dev)
+    occupancy = nd_occupancy(dev, setup[2])
     rates = {}
     if args.sweep:
         rates["untraced"] = chip_smoke.phase_dielectric(dev, setup)[1]
@@ -70,8 +74,31 @@ def main():
                        f"untraced, {rates['after_trace']:.4f} after the "
                        f"profiler sessions; tree {tree}")
     print(json.dumps({"tree": str(tree), "device": smi, "kernels": times,
-                      "config3_eig_s": rates}), flush=True)
+                      "config3_eig_s": rates, "ptxas": ptxas,
+                      "nd_occupancy": occupancy}), flush=True)
     return 0
+
+
+def nd_occupancy(dev, op3):
+    """{call: launch shape} of nd's config-3 calls (16 rows fused and
+    M-half, 48 rows fused), where the package reports it, else None."""
+    import torch
+    from bravais_tpu_torch.operators import nd_apply
+    if not hasattr(nd_apply, "launch_shape"):
+        return None
+    c = op3.nd_consts()
+    out = {}
+    for rows, want in ((16, "AM"), (16, "M"), (48, "AM")):
+        ue = torch.zeros((rows * c.nelem, c.ndof), dtype=torch.complex64,
+                         device=dev)
+        out[f"rows {rows} {want}"] = shape = nd_apply.launch_shape(
+            ue, c, want)
+        chip_smoke.log("occupancy", f"nd rows {rows} {want}: "
+                       f"{shape['rows_per_block']} element-rows "
+                       f"({shape['threads']} threads, {shape['smem_bytes']} "
+                       f"B shared) per block, {shape['blocks_per_sm']} "
+                       f"resident blocks per SM")
+    return out
 
 
 if __name__ == "__main__":

@@ -10,7 +10,8 @@ non-zero; without a CUDA device it exits 1 before doing anything):
 1. device: the ``nvidia-smi`` name and power limit;
 2. build: compile the three kernels of ``bravais_tpu_torch/csrc/``
    (``jacobi_eigh.cu``, ``nd_apply.cu``, ``h1_apply.cu``) for sm_90a, one
-   ``nvcc`` each, all started together;
+   ``nvcc`` each, all started together, and print each kernel entry's
+   registers, barriers, spills and shared memory;
 3. kernel vs plain: the Jacobi kernel against its plain torch version
    on complex64 Hermitian matrices (n = 16, 33, 48, 64; batch 1 and 8;
    the graded 45×45 matrix; the config-3 L-twin blocks, n = 27 × 216);
@@ -37,7 +38,8 @@ non-zero; without a CUDA device it exits 1 before doing anything):
    a pass equal to the calls the path makes;
 6. after the sweeps, so that the launch-bound sweeps run in a process
    the profiler has not traced: a ``torch.profiler`` count showing that
-   one Jacobi call is one device operation, then each kernel's time at
+   one Jacobi call and one nd call (config 3, 16 rows, fused and M-half)
+   are each one device operation, then each kernel's time at
    the shapes the paths give it (Jacobi: 48×48 Rayleigh–Ritz, 16×16
    whitening, 216 × 27×27 L-twin; h1 at 16, 32 and 48 rows; nd at 16 and
    48 rows): its call time between CUDA events (host issue included;
@@ -293,12 +295,15 @@ def phase_kernels(dev):
     return max_abs
 
 
-def phase_one_operation(dev):
-    """A ``jacobi_eigh`` call on the card is one device operation, the
-    kernel (no pad, sort or gather around it), at odd and even n."""
+def phase_one_operation(dev, op3):
+    """A ``jacobi_eigh`` call and a ``nedelec_apply`` call on the card are
+    each one device operation, the kernel (no pad, sort, gather or copy
+    around it): Jacobi at odd and even n, nd at config 3's 16 rows, fused
+    and M-half. ``op3`` is the config-3 operator."""
     import numpy as np
     import torch
     from bravais_tpu_torch.eigen.jacobi_eigh import jacobi_eigh
+    from bravais_tpu_torch.operators import nd_apply
 
     for n, batch in ((27, 216), (48, 1)):
         H = torch.as_tensor(np.stack([rand_herm(n, i) for i in range(batch)])
@@ -309,6 +314,76 @@ def phase_one_operation(dev):
             f"{len(ops)} device operation(s) {ops} (must be 1, the kernel)")
         if len(ops) != 1 or "jacobi_eigh_kernel" not in ops[0]:
             raise RuntimeError(f"jacobi_eigh_cuda issued {ops}")
+    c = op3.nd_consts()
+    gen = torch.Generator(device=dev).manual_seed(12)
+    ue = torch.randn((16 * c.nelem, c.ndof), generator=gen,
+                     dtype=torch.complex64, device=dev)
+    for want in ("AM", "M"):
+        ops = [e.name for e in device_events(
+            lambda: nd_apply.nedelec_apply(ue, c, want))]
+        log("kernel", f"nd 16 rows {want}: one call issues {len(ops)} "
+            f"device operation(s) {ops} (must be 1, the kernel)")
+        if len(ops) != 1 or "nd_apply_kernel" not in ops[0]:
+            raise RuntimeError(f"nedelec_apply issued {ops}")
+
+
+def _entry_name(mangled):
+    """``name<args>`` of a mangled kernel entry (its identifier ending in
+    ``_kernel`` and its integer template arguments), else the mangled
+    name."""
+    import re
+    i = 0
+    while i < len(mangled):
+        m = re.match(r"\d+", mangled[i:])
+        if not m:
+            i += 1
+            continue
+        start = i + m.end()
+        ident = mangled[start:start + int(m.group())]
+        i = start + len(ident)
+        if ident.endswith("_kernel"):
+            t = re.match(r"I((?:L[ib]-?\d+E)+)E", mangled[i:])
+            args = re.findall(r"L[ib](-?\d+)E", t.group(1)) if t else []
+            return ident + (f"<{', '.join(args)}>" if args else "")
+    return mangled
+
+
+def ptxas_report(libs):
+    """Registers, spills, stack and static shared memory of every kernel
+    entry of the built libraries ({name: library path}), from the
+    ``-Xptxas -v`` output the build keeps beside each library; logs one
+    line per entry and returns {name: [record, ...]}."""
+    import re
+    out = {}
+    for name, lib in libs.items():
+        path = lib.with_name(lib.name.replace(".so", ".ptxas.txt"))
+        recs, cur = [], None
+        text = path.read_text() if path.exists() else ""
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                cur = {"entry": _entry_name(m.group(1))}
+                recs.append(cur)
+                continue
+            if cur is None:
+                continue
+            for key, pat in (("stack", r"(\d+) bytes stack frame"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads"),
+                             ("registers", r"Used (\d+) registers"),
+                             ("barriers", r"used (\d+) barriers"),
+                             ("smem", r"(\d+) bytes smem")):
+                m = re.search(pat, line)
+                if m:
+                    cur[key] = int(m.group(1))
+        for r in recs:
+            log("build", f"{name} {r['entry']}: {r.get('registers')} "
+                f"registers, {r.get('barriers', 0)} barriers, spill "
+                f"stores/loads {r.get('spill_stores')}/"
+                f"{r.get('spill_loads')} B, stack {r.get('stack')} B, static "
+                f"smem {r.get('smem', 0)} B")
+        out[name] = recs
+    return out
 
 
 def phase_jacobi_ltwin(dev, op):
@@ -682,12 +757,7 @@ def main():
     libs = cuda_build.build_all()
     log("build", ", ".join(lib.name for lib in libs.values())
         + f" in {time.perf_counter() - t0:.2f} s (parallel nvcc)")
-    for lib in libs.values():
-        ptxas = lib.with_name(lib.name.replace(".so", ".ptxas.txt"))
-        if ptxas.exists():
-            for line in ptxas.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    log("build", f"{lib.name}: {line.strip()}")
+    ptxas_report(libs)
 
     jac_err = phase_kernels(dev)
     setup3 = dielectric(dev)
@@ -697,7 +767,7 @@ def main():
     diel, _ = phase_dielectric(dev, setup3)
     # The profiler's phases come last, so that the launch-bound sweeps
     # run in a process it has not traced.
-    phase_one_operation(dev)
+    phase_one_operation(dev, setup3[2])
     times = kernel_times(dev, setup3[2])
     log_times(times)
     jac, nd_rec, h1_rec = (

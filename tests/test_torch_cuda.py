@@ -181,15 +181,19 @@ def test_sweep_on_cuda_matches_cpu(cuda):
     assert np.max(r_gpu.residuals) < 1e-10
 
 
-@pytest.mark.parametrize("n,p,rows", [(3, 2, 3), (6, 3, 16)])
+@pytest.mark.parametrize("n,p,rows", [(3, 2, 3), (6, 3, 16), (3, 1, 7),
+                                      (2, 4, 5)])
 def test_nd_kernel_matches_plain(cuda, n, p, rows):
-    """Every half of the Nédélec kernel against the plain version; one
-    launch per call."""
+    """Every half of the Nédélec kernel against the plain version, at the
+    instantiated shapes (p = 2, 3) and with runtime extents (p = 1, 4),
+    odd row counts among them; one launch per call, and its block fits on
+    an SM."""
     c = _sphere_op(n, p, cuda).nd_consts()
     gen = torch.Generator(device=cuda).manual_seed(3)
     ue = torch.randn((rows * c.nelem, c.ndof), generator=gen,
                      dtype=torch.complex64, device=cuda)
     for want in ("AM", "A", "M"):
+        assert nd_apply.launch_shape(ue, c, want)["blocks_per_sm"] >= 1
         before = nd_apply.launches
         out = nd_apply.nedelec_apply(ue, c, want)
         assert nd_apply.launches == before + 1
