@@ -1,17 +1,22 @@
 """Warm-started k-path band sweep.
 
-Port of ``BandSweep.__init__`` (the refine and ``device_tol`` rules),
-``_refine_host`` and ``run_warm`` from ``bravais_tpu/bands/sweep.py``.
-Each k is solved on the device from the previous k's eigenvector block
-(which stays on the device), then refined in f64 on the host:
+Port of ``BandSweep.__init__`` (the refine and ``device_tol`` rules, the
+preconditioner choice), the built-in solve, ``_refine_host`` and
+``run_warm`` from ``bravais_tpu/bands/sweep.py``. Each k is solved on the
+device from the previous k's eigenvector block (which stays on the
+device), then refined in f64 on the host. The solve is an engine's
+``solve_fn`` or, without one, the built-in LOBPCG on the operator's
+matrix-free ``apply_A``/``apply_M`` with its fused ``apply_AM`` and a
+Jacobi or geometric-multigrid preconditioner. The refine:
 
 * a SPECTRAL solve hands over the tiny (m, B) block support, and the
   exact f64 block refine (``solve_fn.refine_np``) replaces the float32
   eigenvalues; a refine that fails its cross-check against the device
   values (or an empty support) falls back to ``host_rayleigh_ritz`` on
   the whole m-row block;
-* a FIELD solve (no support) brings the eigenvector block to the host
-  and refines it with ``host_rayleigh_ritz`` on its lowest nev+2 rows.
+* a FIELD or built-in solve (no support) brings the eigenvector block to
+  the host and refines it with ``host_rayleigh_ritz`` on its lowest
+  nev+2 rows.
 
 The reference overlaps the host refine of k with the device solve of
 k+1; this host-driven loop runs them one after the other. The batched
@@ -28,6 +33,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from bravais_tpu_torch.eigen.lobpcg import PROD_RR_TOL, lobpcg
+from bravais_tpu_torch.eigen.precond import jacobi
 from bravais_tpu_torch.eigen.refine import host_rayleigh_ritz
 
 __all__ = ["BandSweep", "SweepResult"]
@@ -65,22 +72,28 @@ class BandSweep:
 
     Parameters
     ----------
-    operator   : the ``BlochCurlCurl`` whose space and dtype define the
-                 problem.
-    solve_fn   : ``operator.make_spectral_solve_fn()`` (spectral engine)
-                 or ``operator.make_solve_fn()`` (field engine).
+    operator   : ``BlochCurlCurl`` or ``BlochHelmholtz``; its space and
+                 dtype define the problem.
+    solve_fn   : an engine's ``make_spectral_solve_fn()`` /
+                 ``make_solve_fn()``, or None for the built-in LOBPCG on
+                 the operator's matrix-free applies.
     nev        : number of bands; ``block`` the LOBPCG block size
                  (default nev + max(4, nev // 2)).
     tol        : target; in complex64 with ``tol < 1e-4`` the f64 refine
                  is on and the device loop stops at ``device_tol``
                  (default max(tol, 1e-5)).
+    precond    : the built-in solve's preconditioner: "auto" (geometric
+                 multigrid for a ``BlochHelmholtz`` whose coefficients
+                 vary between elements, Jacobi otherwise), "jacobi",
+                 "gmg", None, or a callable k ↦ block preconditioner.
     """
 
-    def __init__(self, operator, solve_fn: Callable, nev: int = 10,
-                 block: Optional[int] = None, tol: float = 1e-6,
-                 maxiter: int = 200, device_tol: Optional[float] = None):
+    def __init__(self, operator, solve_fn: Optional[Callable] = None,
+                 nev: int = 10, block: Optional[int] = None,
+                 tol: float = 1e-6, maxiter: int = 200,
+                 device_tol: Optional[float] = None, precond="auto"):
         self.op = operator
-        self.solve_fn = solve_fn
+        self.solve_fn = solve_fn if solve_fn is not None else self._solve
         self.nev = nev
         self.m = block if block is not None else nev + max(4, nev // 2)
         self.maxiter = maxiter
@@ -94,12 +107,53 @@ class BandSweep:
         # loop only has to identify the support blocks.
         if device_tol is not None and self.refine:
             self.tol = device_tol
+        self.precond = precond
+        self.gmg = None
+        if solve_fn is None:
+            self._resolve_precond()
+
+    def _resolve_precond(self):
+        """Resolve ``precond="auto"`` and build the GMG hierarchy now, not
+        inside the first solve. Jacobi stalls on the stiffness contrast of
+        varying-α scalar problems (the TE air-hole crystal), which one
+        V-cycle per iteration converges."""
+        from bravais_tpu_torch.operators.helmholtz import BlochHelmholtz
+        pre = self.precond
+        if pre == "auto":
+            pre = ("gmg" if isinstance(self.op, BlochHelmholtz)
+                   and not self.op._coef_elem_invariant() else "jacobi")
+        if pre == "gmg":
+            from bravais_tpu_torch.eigen.gmg import GMG
+            self.gmg = GMG(self.op)
+        elif not (pre in ("jacobi", None) or callable(pre)):
+            raise ValueError(f"unknown precond {pre!r}")
+        self.precond_mode = pre
+
+    def _make_precond(self, k):
+        pre = self.precond_mode
+        if pre == "gmg":
+            return self.gmg.precond(k)
+        if pre == "jacobi":
+            return jacobi(self.op.diag_A(k))
+        if callable(pre):
+            return pre(k)
+        return None
+
+    def _solve(self, X0, k, nev, tol, maxiter):
+        """The built-in solve: LOBPCG on (A(k), M) with the fused (A, M)
+        element apply and the resolved preconditioner; no block support."""
+        op = self.op
+        return lobpcg(lambda x: op.apply_A(x, k), op.apply_M, X0, nev,
+                      maxiter=maxiter, tol=tol, precond=self._make_precond(k),
+                      AM=lambda x: op.apply_AM(x, k),
+                      rr_tol=PROD_RR_TOL), None
 
     def _x0(self) -> torch.Tensor:
         """Start block from ``np.random.default_rng(SEED)``, drawn as the
         reference draws it (real and imaginary planes)."""
         rng = np.random.default_rng(SEED)
-        shp = (self.m,) + tuple(self.op.space.field_shape)
+        sp = self.op.space
+        shp = (self.m,) + tuple(getattr(sp, "field_shape", sp.dof_shape))
         t = torch.as_tensor(np.stack([rng.standard_normal(shp),
                                       rng.standard_normal(shp)]),
                             dtype=self.op.rdtype, device=self.op.device)
@@ -112,8 +166,8 @@ class BandSweep:
         block refine, cross-checked against the device eigenvalues ``lam_d``;
         a failed check or an empty support falls back to the host
         Rayleigh–Ritz on all m rows of the eigenvector block ``X`` (a
-        true band may sit in a guard row). Without (field solve): the
-        host Rayleigh–Ritz on the lowest nev+2 rows."""
+        true band may sit in a guard row). Without (field or built-in
+        solve): the host Rayleigh–Ritz on the lowest nev+2 rows."""
         if support is None:
             lam, res = host_rayleigh_ritz(self.op, X.cpu().numpy(), k,
                                           self.nev)

@@ -4,8 +4,9 @@ The band solves have no weights. The spectral solve's state is the set
 of k=0 stencils S_δ (plain f64 numpy arrays held by the reference's
 ``FastDiag.stencils``); the field solve's is the f64 quadrature planes of
 ε and μ⁻¹ (``_eps_q64``, ``_mu_inv_q64``) plus the A, M stencils of its
-(mean-twin) preconditioner and the L stencil of its projector. The start
-block both packages draw from ``np.random.default_rng(seed)``. Building
+(mean-twin) preconditioner and the L stencil of its projector; the
+scalar spectral solve's is the f64 α and β planes and their A, M
+stencils. The start block both packages draw from ``np.random.default_rng(seed)``. Building
 the port's objects from these arrays lets the port run on exactly the
 reference's state, independent of its own evaluation and extraction.
 """
@@ -19,8 +20,10 @@ import torch
 
 from bravais_tpu_torch.operators.curlcurl import BlochCurlCurl
 from bravais_tpu_torch.operators.fastdiag import FastDiag
+from bravais_tpu_torch.operators.helmholtz import BlochHelmholtz
 
-__all__ = ["fastdiag_from_reference", "curlcurl_field_from_reference"]
+__all__ = ["fastdiag_from_reference", "curlcurl_field_from_reference",
+           "helmholtz_from_reference"]
 
 
 def fastdiag_from_reference(stencils: Mapping[str, np.ndarray],
@@ -62,4 +65,27 @@ def curlcurl_field_from_reference(space, eps_q64: np.ndarray,
         op.A_rows, device))
     op.set_fastdiag_L(fastdiag_from_reference(
         {"L": stencil_L}, g.shape, space.p, 1, op.A_rows, device))
+    return op
+
+
+def helmholtz_from_reference(space, alpha_q64: np.ndarray,
+                             beta_q64: np.ndarray,
+                             stencils: Mapping[str, np.ndarray], device,
+                             dtype=torch.complex64) -> BlochHelmholtz:
+    """The port's ``BlochHelmholtz`` on ``space`` (a port H1Space) with the
+    reference's state: its α and β quadrature planes (n₁, q, ..., n_d, q)
+    and its ``qp_fastdiag().stencils`` ("A", "M"), for the spectral engine.
+    Its coefficients are the planes, which a coarse grid cannot resample:
+    build a multigrid's operator from the coefficients themselves."""
+    qshape = space.qpoints_phys().shape[:-1]
+    for name, a in (("alpha", alpha_q64), ("beta", beta_q64)):
+        if np.shape(a) != qshape:
+            raise ValueError(f"{name} plane has shape {np.shape(a)}, "
+                             f"expected {qshape}")
+    op = BlochHelmholtz(space, alpha=np.array(alpha_q64, np.float64),
+                        beta=np.array(beta_q64, np.float64), dtype=dtype,
+                        device=device)
+    op.set_qp_fastdiag(fastdiag_from_reference(
+        {nm: stencils[nm] for nm in ("A", "M")}, space.grid.shape, space.p,
+        1, op.A_rows, device))
     return op

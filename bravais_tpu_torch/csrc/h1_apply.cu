@@ -311,7 +311,8 @@ extern "C" int h1_apply_launch(const void* u, const void* aw, const void* bw,
   cudaError_t err;
   // The repository's shapes: config 3 and QPLaplace at p = 3 (3, 4, 5),
   // the FCC field engine at p = 4 (3, 5, 6), the 2D rods at p = 3
-  // (2, 4, 5) and the 2D scalar headline at p = 4 (2, 5, 6).
+  // (2, 4, 5), the 2D scalar headline at p = 4 (2, 5, 6) and the 2D
+  // multigrid's p = 1 levels (2, 2, 3).
   if (d == 3 && l == 4 && q == 5)
     err = launch<3, 4, 5>(uu, a, b, yy, mm, P, warps, s);
   else if (d == 3 && l == 5 && q == 6)
@@ -320,6 +321,8 @@ extern "C" int h1_apply_launch(const void* u, const void* aw, const void* bw,
     err = launch<2, 4, 5>(uu, a, b, yy, mm, P, warps, s);
   else if (d == 2 && l == 5 && q == 6)
     err = launch<2, 5, 6>(uu, a, b, yy, mm, P, warps, s);
+  else if (d == 2 && l == 2 && q == 3)
+    err = launch<2, 2, 3>(uu, a, b, yy, mm, P, warps, s);
   else if (d == 3)
     err = launch<3, 0, 0>(uu, a, b, yy, mm, P, warps, s);
   else

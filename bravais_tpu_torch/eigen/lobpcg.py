@@ -28,11 +28,18 @@ import torch
 
 from bravais_tpu_torch.eigen.jacobi_eigh import jacobi_eigh
 
-__all__ = ["lobpcg", "LobpcgResult", "PROD_RR_TOL"]
+__all__ = ["lobpcg", "LobpcgResult", "PROD_RR_TOL", "engine_scale_floor"]
 
 #: Production Rayleigh–Ritz eigh stop (the reference's value, measured
 #: iteration- and accuracy-neutral up to 1e-3 there).
 PROD_RR_TOL = 1e-4
+
+def engine_scale_floor(dtype) -> float:
+    """Residual-scale floor of the engines' device solves: 0.3 in
+    complex64 (the f64 refine certifies the near-zero bands), 3e-2 in
+    other dtypes."""
+    return 0.3 if dtype == torch.complex64 else 3e-2
+
 
 #: Zero rows of a warm start are reseeded from this seed when the caller
 #: passes no generator (the reference's fixed PRNGKey(0x5EED)).

@@ -3,8 +3,10 @@
 Port of ``bravais_tpu/eigen/refine.py``. The float32 LOBPCG stops at a
 loose residual; one Rayleigh–Ritz in float64 on the host, on the
 operators' matrix-free NumPy twins, recovers eigenvalues to
-~residual²/gap accuracy. It is the field engine's refine, and the
-spectral engine's fallback after a failed cross-check.
+~residual²/gap accuracy. It is the refine of the field engine and of the
+matrix-free scalar solve, and the spectral engines' fallback after a
+failed cross-check. Operators whose twins take a whole block set
+``supports_batched_np``; the others are applied row by row.
 
 Maxwell gradient-kernel handling, chosen by coefficient structure:
 
@@ -52,8 +54,12 @@ def host_rayleigh_ritz(op, X: np.ndarray, k: np.ndarray, nev: int,
     if invariant:
         X = X - op.gradient_component_np(X, k)
     Xf = X.reshape(m, -1)
-    AXs = np.asarray(op.apply_A_np(X, k))
-    MXs = np.asarray(op.apply_M_np(X, k))
+    if getattr(op, "supports_batched_np", False):
+        AXs = np.asarray(op.apply_A_np(X, k))
+        MXs = np.asarray(op.apply_M_np(X, k))
+    else:                      # host twins of one field (BlochHelmholtz)
+        AXs = np.stack([op.apply_A_np(x, k) for x in X])
+        MXs = np.stack([op.apply_M_np(x, k) for x in X])
     AX = AXs.reshape(m, -1)
     MX = MXs.reshape(m, -1)
     GA = Xf.conj() @ AX.T

@@ -54,10 +54,6 @@ __all__ = ["BlochCurlCurl"]
 
 _CYC = ((0, 1, 2), (1, 2, 0), (2, 0, 1))  # (r, s, t) cyclic triples
 
-#: LOBPCG residual-scale floor of the device solves in complex64 (the
-#: f64 refine certifies the near-zero bands) and in other dtypes.
-SCALE_FLOOR_F32, SCALE_FLOOR = 0.3, 3e-2
-
 #: Kernel contraction per application of the Chebyshev gradient projector
 #: (the reference's measured production target).
 CHEBY_TARGET = 0.15
@@ -69,6 +65,9 @@ class BlochCurlCurl:
     Fields are (3, N₁, N₂, N₃) complex, device blocks (rows, 3, N₁, N₂,
     N₃); device work runs on ``device`` (default the CUDA device) in
     ``dtype``."""
+
+    #: The f64 host twins take a block (m, 3, N₁, N₂, N₃) as well.
+    supports_batched_np = True
 
     def __init__(self, space: NedelecSpace, eps: CoefLike = 1.0,
                  mu_inv: CoefLike = 1.0, dtype=torch.complex64,
@@ -613,10 +612,11 @@ class BlochCurlCurl:
 
         Returns ``solve(X0, k, nev, tol, maxiter)`` → (LobpcgResult with
         eigenvector block (m, 3, N₁, N₂, N₃), None)."""
-        from bravais_tpu_torch.eigen.lobpcg import PROD_RR_TOL, lobpcg
+        from bravais_tpu_torch.eigen.lobpcg import (PROD_RR_TOL,
+                                                    engine_scale_floor,
+                                                    lobpcg)
 
-        sfloor = (SCALE_FLOOR_F32 if self.dtype == torch.complex64
-                  else SCALE_FLOOR)
+        sfloor = engine_scale_floor(self.dtype)
         self.fastdiag()       # host stencil extraction (A, M, L), cached
         self.fastdiag_L()
 
@@ -730,14 +730,15 @@ class BlochCurlCurl:
         field eigenvectors (m, 3, N₁, N₂, N₃), support (m, B));
         ``solve.refine_np`` is the matching host refine.
         """
-        from bravais_tpu_torch.eigen.lobpcg import PROD_RR_TOL, lobpcg
+        from bravais_tpu_torch.eigen.lobpcg import (PROD_RR_TOL,
+                                                    engine_scale_floor,
+                                                    lobpcg)
 
         if not self._coef_elem_invariant():
             raise ValueError("the spectral engine needs element-"
                              "translation-invariant coefficients; use "
                              "make_solve_fn (the field engine)")
-        sfloor = (SCALE_FLOOR_F32 if self.dtype == torch.complex64
-                  else SCALE_FLOOR)
+        sfloor = engine_scale_floor(self.dtype)
         s_ = self.default_fd_shift()
         fi = torch.finfo(self.rdtype)
         self.fastdiag_G()  # host stencil extraction (A, M, G), cached

@@ -20,7 +20,9 @@ Three halves:
 * device (torch complex64): ``blocks``, ``to_blocks``, ``from_blocks``
   and the block solver ``solver`` on the FastDiag's ``device``;
 * host refine helpers (f64): ``blocks_np``, ``blocks_np_multi``,
-  ``candidate_blocks`` and the spectral block solver ``solver_np``.
+  ``candidate_blocks``, the spectral block solver ``solver_np`` and the
+  exact block refine of pencils without a nullspace (scalar Helmholtz)
+  ``spectral_refine_np``.
 
 ``matvec`` (a test cross-check of the reference) is not ported.
 """
@@ -401,6 +403,40 @@ class FastDiag:
                 if sup[r][b] > CAND_TAU * mx:
                     cand.add(int(b))
         return np.asarray(sorted(cand), np.int64)
+
+    def spectral_refine_np(self, support: np.ndarray, k: np.ndarray,
+                           nev: int):
+        """Exact f64 refine for pencils without a nullspace to deflate
+        (scalar Helmholtz): the generalized eigh of each candidate block
+        of the "A" and "M" stencils. Returns (eigenvalues[:nev], residual
+        certificates[:nev]) — the blocks are exact invariant subspaces,
+        so the certificates are at machine precision — or None when the
+        support is all zero (the caller falls back). The certificates are
+        relative to max(|λ|, 3e-2·max|λ_blocks|, 1e-3)."""
+        import scipy.linalg
+
+        idx = self.candidate_blocks(support)
+        if idx.size == 0:
+            return None
+        k = np.asarray(k, np.float64)
+        TA, TM = self.blocks_np_multi(["A", "M"], k, idx)
+        lams, ress = [], []
+        for A_, M_ in zip(TA, TM):
+            A_ = 0.5 * (A_ + A_.conj().T)
+            M_ = 0.5 * (M_ + M_.conj().T)
+            w, X = scipy.linalg.eigh(A_, M_)
+            MX = M_ @ X
+            R = A_ @ X - MX * w[None, :]
+            nrm = np.maximum(np.linalg.norm(MX, axis=0), 1e-30)
+            lams.append(w)
+            ress.append(np.linalg.norm(R, axis=0) / nrm)
+        allw = np.concatenate(lams)
+        allr = np.concatenate(ress)
+        order = np.argsort(allw)[:nev]
+        lam = allw[order]
+        scale = np.maximum(np.abs(lam),
+                           max(3e-2 * float(np.abs(allw).max()), 1e-3))
+        return lam, allr[order] / scale
 
     def solver_np(self, terms: Sequence[Tuple[str, float]],
                   k: np.ndarray) -> Callable:

@@ -16,7 +16,11 @@ Layout (element-major, one element-row's dofs contiguous):
 
 ``helmholtz_apply`` dispatches on where ``ue`` lies: a CPU tensor runs
 ``helmholtz_apply_plain``; a CUDA tensor launches the kernel or raises.
-``launches`` counts kernel launches (incremented only at the launch).
+``launches`` counts kernel launches and ``launches_by_want`` splits them by
+the halves computed ("AM", "A", "M"); both are incremented only at the
+launch. ``apply_global`` wraps it for blocks of global dofs (the periodic or
+quasi-periodic element gather, the element-major layout, the
+scatter-add), as ``QPLaplace`` and ``BlochHelmholtz`` call it.
 """
 
 from __future__ import annotations
@@ -26,32 +30,36 @@ import ctypes
 import numpy as np
 import torch
 
-from bravais_tpu_torch.spaces.tensor import contract, contract_t
+from bravais_tpu_torch.spaces.tensor import (contract, contract_t,
+                                             gather_qp, scatter_add_qp)
 from bravais_tpu_torch.utils import cuda_build
 
-__all__ = ["H1Consts", "helmholtz_apply", "helmholtz_apply_plain",
-           "launches", "work"]
+__all__ = ["H1Consts", "apply_global", "helmholtz_apply",
+           "helmholtz_apply_plain", "launches", "launches_by_want", "work"]
 
 launches = 0
+launches_by_want = {"AM": 0, "A": 0, "M": 0}
 
 _WANT = {"A": 1, "M": 2, "AM": 3}
 _lib = None
 
 
 class H1Consts:
-    """The kernel's constant inputs on one device: tables (2, q, l)
-    float32 (B, D), the α·w and β·w planes (E, q, ..., q) and the metric
+    """The kernel's constant inputs on one device: tables (2, q, l) (B, D),
+    the α·w and β·w planes (E, q, ..., q), both in ``rdtype`` (float32,
+    the kernel's; float64 for a complex128 plain apply), and the metric
     Jinvᵀ, Jinv (d × d) as host floats."""
 
-    def __init__(self, B, D, alpha_w, beta_w, JinvT, Jinv, device):
+    def __init__(self, B, D, alpha_w, beta_w, JinvT, Jinv, device,
+                 rdtype=torch.float32):
         tabs = np.stack([np.asarray(B, np.float64), np.asarray(D, np.float64)])
         self.q, self.l = tabs.shape[1:]
         self.host_tabs = np.ascontiguousarray(tabs, np.float32)
-        self.tables = torch.as_tensor(self.host_tabs, device=device)
-        self.alpha_w = torch.as_tensor(
-            np.ascontiguousarray(alpha_w, np.float32), device=device)
-        self.beta_w = torch.as_tensor(
-            np.ascontiguousarray(beta_w, np.float32), device=device)
+        self.tables = torch.as_tensor(tabs, dtype=rdtype, device=device)
+        self.alpha_w = torch.as_tensor(np.ascontiguousarray(alpha_w),
+                                       dtype=rdtype, device=device)
+        self.beta_w = torch.as_tensor(np.ascontiguousarray(beta_w),
+                                      dtype=rdtype, device=device)
         self.nelem = self.alpha_w.shape[0]
         self.d = self.alpha_w.ndim - 1
         self.JinvT = np.asarray(JinvT, np.float64)
@@ -62,7 +70,8 @@ class H1Consts:
         self.host_metric = metric.ravel()
 
     @classmethod
-    def from_space(cls, space, alpha_q64, beta_q64, device) -> "H1Consts":
+    def from_space(cls, space, alpha_q64, beta_q64, device,
+                   rdtype=torch.float32) -> "H1Consts":
         """Tables, metric and α·w, β·w planes of an ``H1Space``
         (coefficients sampled at its quadrature points, (n₁,q,...))."""
         sp = space
@@ -76,7 +85,7 @@ class H1Consts:
             return full.transpose(perm).reshape((-1,) + (sp.q,) * d)
 
         return cls(sp.basis.B, sp.basis.D, plane(alpha_q64), plane(beta_q64),
-                   sp.grid.Jinv.T, sp.grid.Jinv, device)
+                   sp.grid.Jinv.T, sp.grid.Jinv, device, rdtype)
 
 
 def work(nblocks: int, c: H1Consts, k, want: str = "AM"):
@@ -154,8 +163,9 @@ def _launch(ue: torch.Tensor, c: H1Consts, k, want: str):
         raise ValueError(f"helmholtz_apply takes a contiguous complex64 "
                          f"(rows·{c.nelem}, {shape}) tensor, got "
                          f"{ue.dtype} {tuple(ue.shape)}")
-    if c.alpha_w.device != ue.device:
-        raise ValueError(f"coefficients on {c.alpha_w.device}, dofs on "
+    if c.alpha_w.device != ue.device or c.alpha_w.dtype != torch.float32:
+        raise ValueError(f"coefficients {c.alpha_w.dtype} on "
+                         f"{c.alpha_w.device}, the kernel takes float32 on "
                          f"{ue.device}")
     kv = np.zeros(3)
     kv[:c.d] = np.asarray(k, np.float64)
@@ -172,6 +182,7 @@ def _launch(ue: torch.Tensor, c: H1Consts, k, want: str):
             c.host_tabs.ctypes.data, metric.ctypes.data,
             c.q, c.l, c.d, c.nelem, ue.shape[0], _WANT[want], stream)
     launches += 1
+    launches_by_want[want] += 1
     cuda_build.check(err, f"h1_apply launch ({want}, {ue.shape[0]} blocks)")
     return y, m
 
@@ -189,3 +200,28 @@ def helmholtz_apply(ue: torch.Tensor, c: H1Consts, k, want: str = "AM"):
     if not ue.is_cuda:
         raise ValueError(f"helmholtz_apply: no kernel for {ue.device}")
     return _launch(ue, c, k, want)
+
+
+def apply_global(space, u: torch.Tensor, c: H1Consts, k, want: str = "AM",
+                 phases=None):
+    """(y, m) of :func:`helmholtz_apply` on a block of global dofs ``u``
+    (rows, N₁, ..., N_d) of ``space``: the periodic element gather (the
+    quasi-periodic one with the wrap ``phases``), the element-major
+    layout, the element apply and the scatter-add of each half in
+    ``want`` (None for the other); both halves share one scatter."""
+    sp = space
+    d = sp.dim
+    n, pp, cl = sp.grid.shape, (sp.p,) * d, (True,) * d
+    ph = phases if phases is not None else [None] * d
+    R, l = u.shape[0], sp.p + 1
+    ue = gather_qp(u, n, pp, cl, ph)               # (R, n₁, l, n₂, l, ...)
+    perm = [0] + [1 + 2 * i for i in range(d)] + [2 + 2 * i for i in range(d)]
+    ue = ue.permute(perm).reshape((-1,) + (l,) * d).contiguous()
+    y, m = helmholtz_apply(ue, c, k, want)
+    halves = [t for t in (y, m) if t is not None]
+    t = halves[0] if len(halves) == 1 else torch.cat(halves)
+    inv = [0] + [x for i in range(d) for x in (1 + i, 1 + d + i)]
+    t = t.reshape((-1,) + tuple(n) + (l,) * d).permute(inv)
+    out = iter(scatter_add_qp(t, n, pp, cl, ph).split(R))
+    return (next(out) if y is not None else None,
+            next(out) if m is not None else None)

@@ -1,0 +1,328 @@
+"""Matrix-free Bloch-shifted scalar Helmholtz operator on H1.
+
+Port of ``bravais_tpu/operators/helmholtz.py``:
+
+    a_k(u, v) = ∫ α (∇u + i k u) · conj(∇v + i k v) dx   (stiffness A(k))
+    m(u, v)   = ∫ β u conj(v) dx                          (mass M)
+
+TM polarization is α = 1, β = ε(x); TE is α = 1/ε(x), β = 1.
+
+What is here:
+
+* device applies on blocks (rows, N₁, ..., N_d): ``apply_A`` (kernel half
+  "A" at k), ``apply_M`` ("M") and the fused pair ``apply_AM`` ("AM"),
+  all through the H1 element kernel (``operators/h1_apply.py``, on CUDA
+  the hand-written ``csrc/h1_apply.cu``) — where the reference computes
+  ``apply_A`` in XLA and only the fused pair in Pallas, both compute the
+  same function;
+* the real diagonals ``diag_A(k)``, ``diag_M`` and ``diag0`` (the k = 0
+  stiffness diagonal), built once on the host;
+* the f64 host twins ``apply_A_np`` and ``apply_M_np`` (one field);
+* the SPECTRAL engine (element-invariant coefficients): ``qp_fastdiag``
+  (the "A" and "M" stencils of the quasi-periodic twin discretization,
+  probed on the 3×3 same-Jacobian twin grid and cached on disk),
+  ``qp_fd_shift`` and ``make_solve_fn``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from bravais_tpu_torch.operators.coefficients import (CoefLike,
+                                                      eval_coefficient)
+from bravais_tpu_torch.operators.h1_apply import H1Consts, apply_global
+from bravais_tpu_torch.spaces import tensor_np as tensor
+from bravais_tpu_torch.spaces.h1 import H1Space
+
+__all__ = ["BlochHelmholtz"]
+
+
+class BlochHelmholtz:
+    """A(k) and M for −(∇+ik)·α(∇+ik)u = λ β u on ``space``; ``alpha`` and
+    ``beta`` are scalars, quadrature planes or callables x ↦ value, kept as
+    given (the multigrid resamples them on its coarse levels). Device
+    work runs on ``device`` (default the CUDA device) in ``dtype``."""
+
+    def __init__(self, space: H1Space, alpha: CoefLike = 1.0,
+                 beta: CoefLike = 1.0, dtype=torch.complex64,
+                 device="cuda"):
+        self.space = space
+        self.dtype = dtype
+        self.rdtype = dtype.to_real()
+        self.device = torch.device(device)
+        xq = space.qpoints_phys()
+        self.alpha = alpha
+        self.beta = beta
+        self._alpha_q64 = eval_coefficient(alpha, xq)
+        self._beta_q64 = eval_coefficient(beta, xq)
+        self.A_rows = space.grid.lattice.A.astype(np.float64)
+        self._np_rdtype = torch.empty((), dtype=self.rdtype).numpy().dtype
+        # k-independent diagonal pieces: diag A(k) = diag_S + |k|² diag_Mα.
+        diag_S, diag_Ma = self._build_diagonals()
+        self._diag_S = diag_S
+        self._diag_M = self._mass_diagonal(self._beta_q64)
+        self._dev_diag_S, self._dev_diag_Ma = (
+            torch.as_tensor(a, device=self.device) for a in (diag_S, diag_Ma))
+        self._consts = None
+
+    # -- device applies ---------------------------------------------------
+
+    def consts(self) -> H1Consts:
+        """The h1 kernel's tables, metric and α·w, β·w planes on the
+        device, in the working precision (built once)."""
+        if self._consts is None:
+            self._consts = H1Consts.from_space(
+                self.space, self._alpha_q64, self._beta_q64, self.device,
+                self.rdtype)
+        return self._consts
+
+    def _k(self, k) -> list:
+        """k rounded to the working precision, as host floats."""
+        return [float(v) for v in np.asarray(k, self._np_rdtype)]
+
+    def apply_A(self, u: torch.Tensor, k) -> torch.Tensor:
+        """A(k) u for a block u (rows, N₁, ..., N_d)."""
+        return apply_global(self.space, u.to(self.dtype), self.consts(),
+                            self._k(k), "A")[0]
+
+    def apply_M(self, u: torch.Tensor, k=None) -> torch.Tensor:
+        """M u (k-free β-mass) for a block u."""
+        return apply_global(self.space, u.to(self.dtype), self.consts(),
+                            [0.0] * self.space.dim, "M")[1]
+
+    def apply_AM(self, u: torch.Tensor, k):
+        """(A(k) u, M u) from one fused element apply."""
+        return apply_global(self.space, u.to(self.dtype), self.consts(),
+                            self._k(k), "AM")
+
+    def diag_A(self, k) -> torch.Tensor:
+        """Real diagonal of A(k) on the device (Jacobi / Chebyshev
+        scaling)."""
+        k = np.asarray(k, self._np_rdtype)
+        return self._dev_diag_S + float(np.sum(k * k)) * self._dev_diag_Ma
+
+    @property
+    def diag_M(self) -> np.ndarray:
+        return self._diag_M
+
+    @property
+    def diag0(self) -> np.ndarray:
+        """The k-independent (k = 0) stiffness diagonal."""
+        return self._diag_S
+
+    # -- host f64 twins ---------------------------------------------------
+
+    def _np_args(self):
+        sp = self.space
+        d = sp.dim
+        return (sp.grid.shape, (sp.p,) * d, (True,) * d)
+
+    def apply_A_np(self, u: np.ndarray, k: np.ndarray) -> np.ndarray:
+        """f64 host A(k) u of one field (N₁, ..., N_d)."""
+        sp = self.space
+        d = sp.dim
+        B64, D64 = sp.basis.B, sp.basis.D
+        tabs = [[D64 if r == i else B64 for i in range(d)] for r in range(d)]
+        wq = sp.quad_weight()
+        Jinv = sp.grid.Jinv
+        kb = np.asarray(k, np.float64).reshape((d,) + (1,) * 2 * d)
+        ue = tensor.gather_np(np.asarray(u, np.complex128), *self._np_args())
+        uq = tensor.contract_np(ue, [B64] * d)
+        ghat = np.stack([tensor.contract_np(ue, tabs[r]) for r in range(d)])
+        g = np.einsum("rs,s...->r...", Jinv.T, ghat)
+        f = self._alpha_q64 * (g + 1j * kb * uq)
+        s = -1j * np.sum(kb * f, axis=0)
+        fhat = np.einsum("rs,s...->r...", Jinv, f)
+        y = tensor.contract_t_np(wq * s, [B64] * d)
+        for r in range(d):
+            y = y + tensor.contract_t_np(wq * fhat[r], tabs[r])
+        return tensor.scatter_add_np(y, *self._np_args())
+
+    def apply_M_np(self, u: np.ndarray, k=None) -> np.ndarray:
+        """f64 host M u of one field (``k`` is ignored: the mass is
+        k-free)."""
+        sp = self.space
+        B64 = sp.basis.B
+        uq = tensor.contract_np(
+            tensor.gather_np(np.asarray(u, np.complex128), *self._np_args()),
+            [B64] * sp.dim)
+        return tensor.scatter_add_np(
+            tensor.contract_t_np(sp.quad_weight() * self._beta_q64 * uq,
+                                 [B64] * sp.dim), *self._np_args())
+
+    # -- host diagonals -----------------------------------------------------
+
+    def _rd_tables(self):
+        """B, D and the quadrature weights rounded to the working
+        precision, as the reference's diagonals use them."""
+        rd = self._np_rdtype
+        sp = self.space
+        return (sp.basis.B.astype(rd), sp.basis.D.astype(rd),
+                sp.quad_weight().astype(rd))
+
+    def _build_diagonals(self):
+        """diag_S[j] = Σ_q w α Σ_rs Ginv[rs] ĝ_r ĝ_s |_loc(j) and
+        diag_Mα[j] = Σ_q w α φ_j(x_q)², by squared-table contractions."""
+        sp = self.space
+        d = sp.dim
+        B, D, wq = self._rd_tables()
+        Ginv = sp.grid.Ginv
+        wa = (wq * self._alpha_q64.astype(self._np_rdtype)).astype(np.float64)
+        BB = B * B
+        diag_S = 0.0
+        for r in range(d):
+            for s in range(d):
+                tabs = []
+                for i in range(d):
+                    if i == r and i == s:
+                        tabs.append(D * D)
+                    elif i == r or i == s:
+                        tabs.append(D * B)
+                    else:
+                        tabs.append(BB)
+                diag_S = diag_S + Ginv[r, s] * tensor.contract_t_np(wa, tabs)
+        args = self._np_args()
+        return (tensor.scatter_add_np(diag_S, *args).astype(self._np_rdtype),
+                tensor.scatter_add_np(tensor.contract_t_np(wa, [BB] * d),
+                                      *args).astype(self._np_rdtype))
+
+    def _mass_diagonal(self, coef_q):
+        B, _, wq = self._rd_tables()
+        wb = (wq * coef_q.astype(self._np_rdtype)).astype(np.float64)
+        return tensor.scatter_add_np(
+            tensor.contract_t_np(wb, [B * B] * self.space.dim),
+            *self._np_args()).astype(self._np_rdtype)
+
+    # -- spectral (twisted-DFT block) engine --------------------------------
+
+    def _coef_elem_invariant(self) -> bool:
+        """True when α and β repeat identically in every element
+        (constants included): the FastDiag factorization is then exact
+        for the quasi-periodic twin discretization."""
+        q, d = self.space.q, self.space.dim
+        shape = tuple(x for n in self.space.grid.shape for x in (n, q))
+        for a in (self._alpha_q64, self._beta_q64):
+            a6 = np.broadcast_to(a, shape)
+            ref = a6[(slice(0, 1), slice(None)) * d]
+            if not np.allclose(a6, ref, rtol=1e-12, atol=0.0):
+                return False
+        return True
+
+    def qp_fastdiag(self):
+        """FastDiag with the "A" (−∇·α∇) and "M" (β-mass) stencils of the
+        quasi-periodic twin discretization (phases in the wrap instead of
+        pointwise ik). Exact for element-invariant coefficients, the
+        mean-coefficient twin otherwise. Constant coefficients are probed
+        on the shrunken same-Jacobian twin grid (``stencil_twin``). Host
+        setup, cached in memory and on disk."""
+        if not hasattr(self, "_qp_fd"):
+            from bravais_tpu_torch.operators.fastdiag import FastDiag
+            from bravais_tpu_torch.operators.qplaplace import QPLaplace
+            sp = self.space
+            if self._coef_elem_invariant():
+                al, be = self.alpha, self.beta
+            else:
+                al = float(np.mean(self._alpha_q64))
+                be = float(np.mean(self._beta_q64))
+            ext_sp = sp
+            if (all(n >= 3 for n in sp.grid.shape)
+                    and any(n > 3 for n in sp.grid.shape)
+                    and not callable(al) and not callable(be)
+                    and np.ndim(al) == 0 and np.ndim(be) == 0):
+                ext_sp = H1Space.make(sp.grid.stencil_twin(), sp.p, sp.q)
+            stiff = QPLaplace(ext_sp, alpha=al, dtype=self.dtype,
+                              device=self.device)
+            mass = QPLaplace(ext_sp, alpha=0.0, beta=be, shift=1.0,
+                             dtype=self.dtype, device=self.device)
+            fd = FastDiag(sp.grid.shape, sp.p, 1, self.A_rows,
+                          device=self.device, dtype=self.dtype)
+            k0 = np.zeros(sp.dim)
+            fd.add_stencil(
+                "A", lambda u: stiff.apply_A_np(u, k0),
+                cache_key=("h1A", sp.q, np.asarray(stiff._alpha_q64).tobytes()),
+                extract_shape=ext_sp.grid.shape)
+            fd.add_stencil(
+                "M", lambda u: mass.apply_A_np(u, k0),
+                cache_key=("h1M", sp.q, np.asarray(mass._beta_q64).tobytes()),
+                extract_shape=ext_sp.grid.shape)
+            self._qp_fd = fd
+        return self._qp_fd
+
+    def set_qp_fastdiag(self, fd) -> None:
+        """Use a prebuilt FastDiag holding "A" and "M" (e.g. one carried
+        across from the reference by ``convert``) instead of extracting."""
+        missing = {"A", "M"} - set(fd.stencils)
+        if missing:
+            raise ValueError(f"FastDiag lacks stencils {sorted(missing)}")
+        self._qp_fd = fd
+
+    def qp_fd_shift(self) -> float:
+        """Band-scale shift s of the (A + sM)⁻¹ block preconditioner."""
+        B = self.space.grid.lattice.B
+        return float(0.5 * np.max(np.sum(B * B, axis=1))
+                     * np.mean(self._beta_q64))
+
+    def make_solve_fn(self, engine: str = "spectral") -> Callable:
+        """LOBPCG entirely in the twisted-DFT block basis: per k the
+        blocks TA, TM and the (A + sM)⁻¹ preconditioner as the block
+        matrix Ycᴴ Yc, Yc = chol(TA + sTM)⁻¹ (s = ``qp_fd_shift``); every
+        per-iteration operation is a batched D×D block product. The
+        Rayleigh–Ritz eigh stops at ``PROD_RR_TOL``. Solves the
+        quasi-periodic discretization of the same Bloch problem (its
+        eigenvalues differ from the matrix-free operator's only at
+        discretization-error level).
+
+        Returns ``solve(X0, k, nev, tol, maxiter)`` → (LobpcgResult with
+        field eigenvectors (m, N₁, ..., N_d), support (m, B));
+        ``solve.refine_np`` is the exact f64 block refine
+        (``FastDiag.spectral_refine_np``)."""
+        from bravais_tpu_torch.eigen.lobpcg import (PROD_RR_TOL,
+                                                    engine_scale_floor,
+                                                    lobpcg)
+
+        if engine != "spectral":
+            raise ValueError(f"unknown engine {engine!r}")
+        if min(self.space.grid.shape) < 3:
+            raise ValueError("spectral engine needs n_i >= 3 per axis")
+        if not self._coef_elem_invariant():
+            raise ValueError("engine='spectral' requires element-translation-"
+                             "invariant coefficients; use the matrix-free "
+                             "path (BandSweep without solve_fn)")
+        sfloor = engine_scale_floor(self.dtype)
+        s_ = self.qp_fd_shift()
+        self.qp_fastdiag()    # host stencil extraction, cached
+
+        def cols(X):   # (L, B, D) rows → (B, D, L) block columns
+            return X.permute(1, 2, 0)
+
+        def rows(Y):
+            return Y.permute(2, 0, 1)
+
+        def solve(X0, k, nev, tol, maxiter):
+            fd = self.qp_fastdiag()
+            F = fd._fwd_mats(fd._theta(k))
+            TA = fd.blocks([("A", 1.0)], k)
+            TM = fd.blocks([("M", 1.0)], k)
+            # HPD shifted pencil: its Cholesky inverse (chol raises if not).
+            Lc = torch.linalg.cholesky(TA + s_ * TM)
+            eyeD = torch.eye(fd.D, dtype=self.dtype, device=self.device)
+            Yc = torch.linalg.solve_triangular(Lc, eyeD.expand(Lc.shape),
+                                               upper=False)
+            Tpc = Yc.mH @ Yc
+            res = lobpcg(lambda X: rows(TA @ cols(X)),
+                         lambda X: rows(TM @ cols(X)),
+                         fd.to_blocks(X0, F), nev, maxiter=maxiter, tol=tol,
+                         precond=lambda R: rows(Tpc @ cols(R)),
+                         scale_floor=sfloor, rr_tol=PROD_RR_TOL)
+            support = (res.eigenvectors.abs() ** 2).sum(dim=-1)
+            Xf = fd.from_blocks(res.eigenvectors, F)
+            return res._replace(eigenvectors=Xf), support
+
+        solve.provides_support = True
+        solve.refine_np = (lambda support, k, nev:
+                           self.qp_fastdiag().spectral_refine_np(support, k,
+                                                                 nev))
+        return solve

@@ -1,4 +1,4 @@
-"""Quasi-periodic scalar Laplacian  Λ φ = −∇·(α ∇φ)  on H1_qp.
+"""Quasi-periodic scalar Laplacian  Λ φ = −∇·(α ∇φ) + shift·β φ  on H1_qp.
 
 Port of ``bravais_tpu/operators/qplaplace.py``. The deflation operator
 of the Maxwell field solve, L = Gᴴ M_ε G (``BlochCurlCurl.apply_Lk``),
@@ -6,8 +6,10 @@ equals this operator EXACTLY at matching quadrature:
 ⟨Gφ, M_ε Gψ⟩ = ∫ ε ∇φ·conj(∇ψ). k enters only through the wrap phases
 e^{i k·a_i} of the element gather/scatter (torch); the element apply is
 the stiffness half of the H1 kernel at k = 0 (``operators/h1_apply.py``,
-on CUDA the hand-written ``csrc/h1_apply.cu``). The reference's β-mass
-shift is not ported: no caller of the port sets it.
+on CUDA the hand-written ``csrc/h1_apply.cu``); with a mass shift the
+kernel returns the β-mass half beside it. The shifted operator's first
+caller is the mass stencil of ``BlochHelmholtz.qp_fastdiag``
+(α = 0, shift = 1).
 
 The device apply takes blocks (rows, N₁, ..., N_d); ``apply_A_np`` is the
 f64 host twin (phases at k = 0) the stencil extraction probes. The
@@ -22,8 +24,7 @@ import torch
 
 from bravais_tpu_torch.operators.coefficients import (CoefLike,
                                                       eval_coefficient)
-from bravais_tpu_torch.operators.h1_apply import H1Consts, helmholtz_apply
-from bravais_tpu_torch.spaces import tensor
+from bravais_tpu_torch.operators.h1_apply import H1Consts, apply_global
 from bravais_tpu_torch.spaces import tensor_np
 from bravais_tpu_torch.spaces.h1 import H1Space
 
@@ -31,26 +32,30 @@ __all__ = ["QPLaplace"]
 
 
 class QPLaplace:
-    """Λ φ = −∇·(α∇φ) on ``space``, device work on ``device`` in
-    ``dtype``."""
+    """Λ φ = −∇·(α∇φ) + shift·β φ on ``space``, device work on ``device``
+    in ``dtype``."""
 
     def __init__(self, space: H1Space, alpha: CoefLike = 1.0,
+                 beta: CoefLike = 1.0, shift: float = 0.0,
                  dtype=torch.complex64, device="cuda"):
         self.space = space
         self.dtype = dtype
         self.rdtype = dtype.to_real()
         self.device = torch.device(device)
-        self._alpha_q64 = eval_coefficient(alpha, space.qpoints_phys())
+        self.shift = float(shift)
+        xq = space.qpoints_phys()
+        self._alpha_q64 = eval_coefficient(alpha, xq)
+        self._beta_q64 = eval_coefficient(beta, xq)
         self.A_rows = space.grid.lattice.A.astype(np.float64)
         self._consts = None
 
     def consts(self) -> H1Consts:
-        """The h1 kernel's tables, metric and α·w plane on the device
-        (built once; β = 1 fills the mass plane this operator does not
-        use)."""
+        """The h1 kernel's tables, metric and α·w, β·w planes on the
+        device (built once)."""
         if self._consts is None:
             self._consts = H1Consts.from_space(
-                self.space, self._alpha_q64, 1.0, self.device)
+                self.space, self._alpha_q64, self._beta_q64, self.device,
+                self.rdtype)
         return self._consts
 
     def phases(self, k) -> torch.Tensor:
@@ -64,22 +69,15 @@ class QPLaplace:
     def apply_A(self, u: torch.Tensor, k=None, *, ph=None) -> torch.Tensor:
         """Λ(k) u for a block u (rows, N₁, ..., N_d); pass ``k`` or the
         precomputed phases ``ph``."""
-        sp = self.space
-        d = sp.dim
-        n = sp.grid.shape
         if ph is None:
             ph = self.phases(k)
-        R = u.shape[0]
-        l = sp.p + 1
-        ue = tensor.gather_qp(u.to(self.dtype), n, (sp.p,) * d, (True,) * d,
-                              ph)                  # (R, n₁, l, n₂, l, ...)
-        perm = [0] + [1 + 2 * i for i in range(d)] + [2 + 2 * i
-                                                      for i in range(d)]
-        ue = ue.permute(perm).reshape((-1,) + (l,) * d).contiguous()
-        y, _ = helmholtz_apply(ue, self.consts(), [0.0] * d, "A")
-        inv = [0] + [x for i in range(d) for x in (1 + i, 1 + d + i)]
-        y = y.reshape((R,) + tuple(n) + (l,) * d).permute(inv)
-        return tensor.scatter_add_qp(y, n, (sp.p,) * d, (True,) * d, ph)
+        k0 = [0.0] * self.space.dim
+        if self.shift:
+            y, m = apply_global(self.space, u.to(self.dtype), self.consts(),
+                                k0, "AM", ph)
+            return y + self.shift * m
+        return apply_global(self.space, u.to(self.dtype), self.consts(), k0,
+                            "A", ph)[0]
 
     def apply_A_np(self, u, k=None):
         """f64 host twin (phases at k = 0, as in the reference; the
@@ -99,4 +97,8 @@ class QPLaplace:
         y = 0.0
         for r in range(d):
             y = y + tensor_np.contract_t_np(z[r], tabs[r])
+        if self.shift != 0.0:
+            uq = tensor_np.contract_np(ue, [B64] * d)
+            y = y + self.shift * tensor_np.contract_t_np(
+                self._beta_q64 * sp.quad_weight() * uq, [B64] * d)
         return tensor_np.scatter_add_np(y, *args)

@@ -1,10 +1,10 @@
 """Device (torch) tensor-product element machinery on periodic grids.
 
-The device half of ``bravais_tpu/spaces/tensor.py``: the quasi-periodic
-element gather and its adjoint scatter-add (``gather_axis``,
-``scatter_add_axis`` with the Bloch wrap phase; ``gather_qp``,
-``scatter_add_qp`` over every axis) and the sum-factorized 1D
-contractions (``contract``, ``contract_t``).
+The device half of ``bravais_tpu/spaces/tensor.py``: the periodic element
+gather and its adjoint scatter-add (``gather``, ``scatter_add``), their
+quasi-periodic variants (``gather_axis``, ``scatter_add_axis`` with the
+Bloch wrap phase; ``gather_qp``, ``scatter_add_qp`` over every axis) and
+the sum-factorized 1D contractions (``contract``, ``contract_t``).
 
 Every array carries a leading block-row axis that the functions pass
 through: the port's LOBPCG hands whole blocks (rows, *dof_shape) to the
@@ -31,8 +31,8 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["gather_axis", "scatter_add_axis", "gather_qp",
-           "scatter_add_qp", "contract", "contract_t"]
+__all__ = ["gather", "scatter_add", "gather_axis", "scatter_add_axis",
+           "gather_qp", "scatter_add_qp", "contract", "contract_t"]
 
 
 def gather_axis(u: torch.Tensor, axis: int, n: int, p: int, phase=None
@@ -94,6 +94,19 @@ def scatter_add_qp(r: torch.Tensor, shape: Sequence[int], p: Sequence[int],
             s = r.shape
             r = r.reshape(*s[:ax + 1], shape[i] * p[i], *s[ax + 3:])
     return r
+
+
+def gather(u: torch.Tensor, shape: Sequence[int], p: Sequence[int],
+           closed: Sequence[bool]) -> torch.Tensor:
+    """Periodic multi-axis gather (no phase): global dofs (rows, N_1,
+    ..., N_d) -> element dofs (rows, n_1, l_1, ..., n_d, l_d)."""
+    return gather_qp(u, shape, p, closed, [None] * len(shape))
+
+
+def scatter_add(r: torch.Tensor, shape: Sequence[int], p: Sequence[int],
+                closed: Sequence[bool]) -> torch.Tensor:
+    """Adjoint of :func:`gather`."""
+    return scatter_add_qp(r, shape, p, closed, [None] * len(shape))
 
 
 def _table(T, x: torch.Tensor) -> torch.Tensor:

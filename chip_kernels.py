@@ -9,7 +9,9 @@ give them, on one NVIDIA GPU, for this checkout's package or another's.
 
 It builds that package's kernels, prints each kernel entry's registers,
 spills and shared memory (``chip_smoke.ptxas_report``), sets up config 3
-(the inputs of the L-twin, h1 and nd calls), prints nd's launch shape and
+(the inputs of the L-twin, h1 and nd calls) and, where the package has
+the scalar Helmholtz operator, config 2 (its h1 shapes and Jacobi
+45×45), prints nd's launch shape and
 resident blocks per SM at its config-3 calls (where the package reports
 them, ``nd_apply.launch_shape``) and prints the card's name and power
 limit, one line per kernel and shape (``chip_smoke.kernel_times``: the kernel's call
@@ -25,6 +27,7 @@ card. Exits 1 without a CUDA device.
 """
 
 import argparse
+import importlib.util
 import json
 import subprocess
 import sys
@@ -66,7 +69,9 @@ def main():
     rates = {}
     if args.sweep:
         rates["untraced"] = chip_smoke.phase_dielectric(dev, setup)[1]
-    times = chip_smoke.kernel_times(dev, setup[2], plain=False)
+    rods = (chip_smoke.rods_setup(dev) if importlib.util.find_spec(
+        "bravais_tpu_torch.operators.helmholtz") else None)
+    times = chip_smoke.kernel_times(dev, setup[2], rods, plain=False)
     chip_smoke.log_times(times)
     if args.sweep:
         rates["after_trace"] = chip_smoke.phase_dielectric(dev, setup)[1]

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's two sweeps on one NVIDIA GPU: the
-FCC headline (spectral engine) and config 3 (the dielectric field
-engine), both as ``chip_smoke.py`` configures them.
+"""Where the time goes in the port's sweeps on one NVIDIA GPU: the FCC
+headline (spectral engine), config 3 (the dielectric field engine),
+config 1 (the scalar spectral engine) and config 2 TM (the matrix-free
+scalar solve with the multigrid preconditioner), all as ``chip_smoke.py``
+configures them.
 
     python3 chip_profile.py      # needs one card; no arguments
 
@@ -14,7 +16,8 @@ For each sweep (one cold pass first) it prints, one line each:
 2. the per-k setup pieces at one k (CUDA events, median of 20) and, for
    the field engine, the pieces of one LOBPCG iteration: the
    preconditioner, the fused (A, M) apply, the Chebyshev gradient
-   projector and the mass apply at their row counts;
+   projector and the mass apply at their row counts; for config 2 the
+   V-cycle and the fused (A, M) at the block's rows;
 3. a ``torch.profiler`` trace of the device solve of two k-points: the
    device operations (kernels, copies, fills), the device's busy time
    and idle share of the traced window and of the same solves run
@@ -56,25 +59,26 @@ def timed(fn, into):
 
 
 def phase_pass(tag, kc, sweep, make_solve):
-    """One warm pass with the solve and its LOBPCG timed."""
+    """One warm pass with the solve and its LOBPCG timed. ``make_solve``
+    makes the engine's solve, or is None for the sweep's built-in one."""
+    from bravais_tpu_torch.bands import sweep as sweep_mod
     from bravais_tpu_torch.eigen import lobpcg as lobpcg_mod
 
     t_solve, t_lob, t_ref = [], [], []
     plain = lobpcg_mod.lobpcg
-    lobpcg_mod.lobpcg = timed(plain, t_lob)
+    lobpcg_mod.lobpcg = sweep_mod.lobpcg = timed(plain, t_lob)
+    untimed = sweep.solve_fn
     try:
-        solve = make_solve()                  # binds the timed lobpcg
-    finally:
-        lobpcg_mod.lobpcg = plain
-    wsolve = timed(solve, t_solve)
-    if hasattr(solve, "refine_np"):
-        wsolve.refine_np = solve.refine_np
-    sweep.solve_fn = wsolve
-    sweep._refine_host = timed(sweep._refine_host, t_ref)
-    try:
+        solve = make_solve() if make_solve else untimed  # binds the timed
+        wsolve = timed(solve, t_solve)                   # lobpcg
+        if hasattr(solve, "refine_np"):
+            wsolve.refine_np = solve.refine_np
+        sweep.solve_fn = wsolve
+        sweep._refine_host = timed(sweep._refine_host, t_ref)
         res = sweep.run_warm(kc)
     finally:
-        sweep.solve_fn = make_solve()     # untimed, for later phases
+        lobpcg_mod.lobpcg = sweep_mod.lobpcg = plain
+        sweep.solve_fn = make_solve() if make_solve else untimed
         del sweep._refine_host            # back to the class method
     nk = len(kc)
     iters = int(res.iterations.sum())
@@ -173,6 +177,34 @@ def phase_field_pieces(kc, op, sweep):
                    + ", ".join(f"{n} {t:.4f} ms" for n, t in ms.items()))
 
 
+def phase_gmg_pieces(kc, op, sweep):
+    """CUDA-event times of one config-2 LOBPCG iteration's operator work
+    at k = kc[TRACE_K[0]]: the V-cycle on the block's rows, one fused
+    (A, M) apply and one "A" apply on each multigrid level."""
+    import torch
+    from bravais_tpu_torch.utils.timing import cuda_ms
+
+    k = kc[TRACE_K[0]]
+    m = sweep.m
+    gen = torch.Generator(device=op.device).manual_seed(3)
+    X = torch.randn((m,) + op.space.dof_shape, generator=gen,
+                    dtype=op.dtype, device=op.device)
+    pc = sweep.gmg.precond(k)
+    pieces = {f"V-cycle [{m} rows]": lambda: pc(X),
+              f"fused (A, M) [{m} rows]": lambda: op.apply_AM(X, k)}
+    for lv in sweep.gmg.levels:
+        sp = lv.op.space
+        Y = torch.randn((m,) + sp.dof_shape, generator=gen, dtype=op.dtype,
+                        device=op.device)
+        pieces[f"A on {sp.grid.shape[0]}x{sp.grid.shape[1]} p{sp.p} "
+               f"[{m} rows]"] = (lambda o=lv.op, y=Y: o.apply_A(y, k))
+    ms = {name: cuda_ms(fn, reps=20) for name, fn in pieces.items()}
+    chip_smoke.log("rods iter", "per-iteration pieces (one iteration runs "
+                   f"the V-cycle, {sweep.gmg.launches_per_vcycle()} level "
+                   "applies, and one fused (A, M) on m rows): "
+                   + ", ".join(f"{n} {t:.4f} ms" for n, t in ms.items()))
+
+
 def phase_trace(tag, kc, sweep):
     """Profile the device solve (no refine) of the TRACE_K k-points."""
     import torch
@@ -265,6 +297,21 @@ def main():
     phase_field_pieces(kc, op, sweep)
     phase_trace("diel trace", kc, sweep)
     chip_smoke.log("done", f"config 3 iters/k {res.iterations.mean():.2f}")
+    del op, sweep
+
+    kc, op, sweep = chip_smoke.scalar_setup(dev)
+    sweep.run_warm(kc)
+    res = phase_pass("scalar pass", kc, sweep, op.make_solve_fn)
+    phase_trace("scalar trace", kc, sweep)
+    chip_smoke.log("done", f"config 1 iters/k {res.iterations.mean():.2f}")
+    del op, sweep
+
+    kc, op, sweep = chip_smoke.rods_setup(dev)
+    sweep.run_warm(kc)
+    res = phase_pass("rods pass", kc, sweep, None)
+    phase_gmg_pieces(kc, op, sweep)
+    phase_trace("rods trace", kc, sweep)
+    chip_smoke.log("done", f"config 2 iters/k {res.iterations.mean():.2f}")
     return 0
 
 

@@ -13,12 +13,14 @@ non-zero; without a CUDA device it exits 1 before doing anything):
    ``nvcc`` each, all started together, and print each kernel entry's
    registers, barriers, spills and shared memory;
 3. kernel vs plain: the Jacobi kernel against its plain torch version
-   on complex64 Hermitian matrices (n = 16, 33, 48, 64; batch 1 and 8;
+   on complex64 Hermitian matrices (n = 16, 33, 45, 48, 64; batch 1 and 8;
    the graded 45×45 matrix; the config-3 L-twin blocks, n = 27 × 216);
    the Nédélec (nd) and H1 element kernels against their plain versions
    (config-3 shapes at 16 and 48 rows, h1 also at 32, the odd FCC n=3
    p=2 shape, varying coefficients, every half ("AM", "A", "M"), h1 at
-   k = 0 and k ≠ 0; relative error < 2e-5);
+   k = 0 and k ≠ 0, h1 also at config 2's shapes: 16 rows of 256
+   elements at (l, q) = (4, 5) and the multigrid's p=1 levels, (2, 3) on
+   64 and 4 elements, at k ≠ 0; relative error < 2e-5);
 4. headline sweep: FCC Maxwell, n=8 p=4 (98,304 Nédélec dofs), Γ–X–W–L
    nk=16 with Γ nudged to 2e-2·b₁, 10 bands in a block of 16, spectral
    engine, device stop 1e-3 then the f64 host refine, warm-started; one
@@ -36,13 +38,32 @@ non-zero; without a CUDA device it exits 1 before doing anything):
    band 10 within 1e-6 relative at k index 0, every refined residual
    certificate finite and < 1e-2, and the nd, h1 and Jacobi launches of
    a pass equal to the calls the path makes;
-6. after the sweeps, so that the launch-bound sweeps run in a process
+6. scalar H1 sweeps, BlochHelmholtz on H1 elements, each one cold pass
+   and 2 timed passes, warm-started, with the f64 host refine, the
+   launches of each kernel in a pass equal to the calls the path makes:
+   ``[scalar]`` config 1: SQR empty lattice, n=16 p=4 (4,096 dofs = 256
+   twisted-DFT blocks of D=16), Γ–X–M–Γ nk=16 (Γ not nudged), 10 bands
+   in a block of 15, spectral engine, device stop 1e-3 then the exact
+   block refine; max eigenvalue error against the analytic bands < 1e-6
+   and no refine fallback. ``[rods2d]`` config 2 TM: SQR with ε = 8.9
+   rods of r = 0.2a (α = 1, β = ε), n=16 p=3 (2,304 dofs), Γ–X–M–Γ
+   nk=16, 10 bands in a block of 16, matrix-free LOBPCG with the fused
+   (A, M) h1 kernel and the geometric-multigrid preconditioner (5
+   levels, every apply the h1 kernel), device stop 1e-4 then the host
+   Rayleigh–Ritz; bands 1–10 at k indices 0, 5, 10, 15 within 1e-6
+   relative of the dense complex128 oracle (band 1 at Γ within
+   1e-6·λ₁₀), and the TM gap inside the published brackets. ``[te]``:
+   HEX2D air holes r = 0.48a in ε = 13, TE (α = 1/ε), n=12 p=3, one k at
+   M, 6 bands in a block of 10, GMG chosen by ``precond="auto"``; bands
+   1–6 within 1e-6 relative of the dense oracle;
+7. after the sweeps, so that the launch-bound sweeps run in a process
    the profiler has not traced: a ``torch.profiler`` count showing that
    one Jacobi call and one nd call (config 3, 16 rows, fused and M-half)
    are each one device operation, then each kernel's time at
-   the shapes the paths give it (Jacobi: 48×48 Rayleigh–Ritz, 16×16
-   whitening, 216 × 27×27 L-twin; h1 at 16, 32 and 48 rows; nd at 16 and
-   48 rows): its call time between CUDA events (host issue included;
+   the shapes the paths give it (Jacobi: 48×48 and 45×45 Rayleigh–Ritz,
+   16×16 whitening, 216 × 27×27 L-twin; h1 at 16, 32 and 48 rows of
+   config 3, config 2's fused (A, M) at k ≠ 0 and its multigrid levels'
+   p=1 "A" on 64 and 4 elements; nd at 16 and 48 rows): its call time between CUDA events (host issue included;
    ``ms`` in the kernels line), its device time from a ``torch.profiler``
    trace (``device_ms``), the plain version's call time, for Jacobi
    ``torch.linalg.eigh``'s call and device times (``library_ms``,
@@ -81,6 +102,17 @@ DIEL_N, DIEL_P, DIEL_EPS, DIEL_RADIUS = 6, 3, 13.0, 0.25
 DIEL_DEVICE_TOL, DIEL_PASSES = 1e-4, 3
 DIEL_ORACLE = REPO / "results" / "certify_r5" / "dielectric_n6p3.jsonl"
 DIEL_REL_BAR, DIEL_GAMMA_ABS, DIEL_RES_BAR = 1e-6, 2e-7, 1e-2
+# Config 1 (``bench.py --problem scalar`` defaults) and config 2 TM
+# (``--problem rods2d``), and the TE air-hole crystal of
+# tests/test_photonic2d.py::test_auto_precond_gmg_fixes_te_contrast_stall.
+SCALAR_N, SCALAR_P, SCALAR_DEVICE_TOL = 16, 4, 1e-3
+RODS_N, RODS_P, RODS_EPS, RODS_RADIUS, RODS_BLOCK = 16, 3, 8.9, 0.2, 16
+H1_DEVICE_TOL, H1_MAXITER, H1_PASSES = 1e-4, 400, 2
+RODS_ORACLE_K, RODS_REL_BAR = (0, 5, 10, 15), 1e-6
+# The published TM gap of the rods (Joannopoulos ch. 5 / MPB), in ωa/2πc:
+# bottom, top, gap/midgap, each (value, bracket).
+TM_GAP = ((0.323, 0.015), (0.443, 0.020), (0.31, 0.04))
+TE_N, TE_P, TE_EPS, TE_RADIUS, TE_NEV, TE_BLOCK = 12, 3, 13.0, 0.48, 6, 10
 ELEM_BAR = 2e-5
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and float32 flop/s
 # outside the tensor cores.
@@ -142,12 +174,18 @@ def device_events(fn, reps=1):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # Now and then a process's trace holds no device operation at all,
+    # though every call issues some: such a trace is taken again.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if dev:
+            break
+    return dev
 
 
 def device_ms(fn, reps=20):
@@ -162,7 +200,7 @@ def device_ms(fn, reps=20):
     return sum(e.time_range.elapsed_us() for e in dev) / reps / 1e3
 
 
-def kernel_times(dev, op3, plain=True):
+def kernel_times(dev, op3, rods=None, plain=True):
     """Per-call times of the three kernels at the shapes the main paths
     give them: {kernel: {shape: record}}. Each record holds the time of
     one call between two CUDA events, the host's issue in it (``ms``), the
@@ -174,7 +212,10 @@ def kernel_times(dev, op3, plain=True):
     48×48 Rayleigh–Ritz at ``rel_tol`` 1e-4, 16×16 whitening, the 216 ×
     27×27 L-twin batch (both at the default stop); h1 config-3 k = 0
     "A" on 16, 32 and 48 rows; nd config-3 fused and M-half on 16 and 48
-    rows. ``op3`` is the config-3 operator."""
+    rows; with ``rods`` (the config-2 setup) also Jacobi 45×45 (config
+    1's Rayleigh–Ritz), h1 config-2 fused (A, M) at k ≠ 0 on 16 rows of
+    256 elements and its multigrid's p=1 "A" on 16 rows of 64 and of 4
+    elements. ``op3`` is the config-3 operator."""
     import numpy as np
     import torch
     from bravais_tpu_torch.eigen import jacobi_cuda
@@ -195,10 +236,12 @@ def kernel_times(dev, op3, plain=True):
         return rec
 
     out = {"jacobi": {}, "h1": {}, "nd": {}}
-    for key, H, rel_tol in (
-            ("rr 48x48", rand_herm(48, 55), 1e-4),
-            ("whitening 16x16", rand_herm(16, 23), None),
-            ("l-twin 216x27x27", ltwin_blocks(op3), None)):
+    jac_shapes = [("rr 48x48", rand_herm(48, 55), 1e-4),
+                  ("whitening 16x16", rand_herm(16, 23), None),
+                  ("l-twin 216x27x27", ltwin_blocks(op3), None)]
+    if rods is not None:
+        jac_shapes.append(("rr 45x45", rand_herm(45, 56), 1e-4))
+    for key, H, rel_tol in jac_shapes:
         H = torch.as_tensor(H, dtype=torch.complex64, device=dev)
         nsw = jacobi_cuda.sweeps_run(H, rel_tol=rel_tol).reshape(-1)
         nsw = nsw.cpu().numpy()
@@ -219,6 +262,22 @@ def kernel_times(dev, op3, plain=True):
             lambda: h1_apply.helmholtz_apply(ue, c, k0, "A"),
             lambda: h1_apply.helmholtz_apply_plain(ue, c, k0, "A"),
             h1_apply.work(ue.shape[0], c, k0, "A"))
+    if rods is not None:
+        levels = rods[2].gmg.levels
+        k2 = [float(v) for v in
+              levels[0].op.space.grid.lattice.k_cart((0.3, 0.1))]
+        for key, lv, want in (("config-2 rows 16 k!=0 AM", levels[0], "AM"),
+                              ("config-2 8x8 p=1 rows 16 k!=0 A", levels[2],
+                               "A"),
+                              ("config-2 2x2 p=1 rows 16 k!=0 A",
+                               levels[-1], "A")):
+            c = lv.op.consts()
+            ue = torch.randn((16 * c.nelem,) + (c.l,) * c.d, generator=gen,
+                             dtype=torch.complex64, device=dev)
+            out["h1"][key] = record(
+                lambda: h1_apply.helmholtz_apply(ue, c, k2, want),
+                lambda: h1_apply.helmholtz_apply_plain(ue, c, k2, want),
+                h1_apply.work(ue.shape[0], c, k2, want))
     c = op3.nd_consts()
     for rows in (16, 48):
         ue = torch.randn((rows * c.nelem, c.ndof), generator=gen,
@@ -257,7 +316,7 @@ def phase_kernels(dev):
                                                     jacobi_eigh_plain)
 
     max_abs = 0.0
-    for n, batch in itertools.product((16, 33, 48, 64), (1, 8)):
+    for n, batch in itertools.product((16, 33, 45, 48, 64), (1, 8)):
         Hs = np.stack([rand_herm(n, 1000 * n + i) for i in range(batch)])
         H = torch.as_tensor(Hs.astype(np.complex64), device=dev)
         w, V = jacobi_eigh(H)
@@ -434,9 +493,10 @@ def _rel(a, b):
                  / torch.linalg.vector_norm(b))
 
 
-def phase_elements(dev, op3):
+def phase_elements(dev, op3, rods):
     """The nd and h1 element kernels against their plain versions; returns
-    their max abs errors (nd, h1)."""
+    their max abs errors (nd, h1). ``rods`` is the config-2 setup, whose
+    multigrid levels give h1 its 2D shapes."""
     import numpy as np
     import torch
     from bravais_tpu_torch.lattices import make_lattice
@@ -490,11 +550,19 @@ def phase_elements(dev, op3):
     max_abs = 0.0
     c3 = op3.qp_L().consts()
     kx = [float(v) for v in op3.space.grid.lattice.k_cart((0.1, 0.3, 0.2))]
-    for label, c, rows, k in (("config-3 k=0", c3, 16, [0.0] * 3),
+    levels = rods[2].gmg.levels
+    k2 = [float(v) for v in levels[0].op.space.grid.lattice.k_cart((0.3, 0.1))]
+    # The fine level (the fused (A, M)) and two p=1 levels: 8×8 and the
+    # coarsest 2×2.
+    h1_2d = [(f"config-2 {lv.op.space.grid.shape[0]}x"
+              f"{lv.op.space.grid.shape[1]} p={lv.op.space.p} k!=0",
+              lv.op.consts(), 16, k2)
+             for lv in (levels[0], levels[2], levels[-1])]
+    for label, c, rows, k in [("config-3 k=0", c3, 16, [0.0] * 3),
                               ("config-3 k=0", c3, 32, [0.0] * 3),
                               ("config-3 k=0", c3, 48, [0.0] * 3),
                               ("config-3 k!=0", c3, 16, kx),
-                              ("FCC n=3 p=2 k!=0", h1_small, 5, k3)):
+                              ("FCC n=3 p=2 k!=0", h1_small, 5, k3)] + h1_2d:
         ue = dofs(rows * c.nelem, (c.l,) * c.d)
         errs = []
         for want in ("AM", "A", "M"):
@@ -505,8 +573,9 @@ def phase_elements(dev, op3):
                     errs.append(_rel(a, b))
                     max_abs = max(max_abs, float((a - b).abs().max()))
         err = max(errs)
-        log("kernel", f"h1 {label} rows={rows}: rel err {err:.3e} "
-            f"(<{ELEM_BAR:g}) over AM, A, M")
+        log("kernel", f"h1 {label} rows={rows} (l, q) = ({c.l}, {c.q}), "
+            f"{c.nelem} elements: rel err {err:.3e} (<{ELEM_BAR:g}) over AM, "
+            f"A, M")
         if not err < ELEM_BAR:
             raise RuntimeError(f"h1 kernel disagrees with plain ({label})")
     return nd_err, max_abs
@@ -541,6 +610,18 @@ def headline(dev):
     return lat, kc, op, sweep
 
 
+def eig_error(lam, lat, k, mmax, mult):
+    """bench.py's accuracy measure: max |λ − λ_exact| over max(λ_exact
+    max, 1), λ_exact the lowest len(lam) empty-lattice bands (sorted
+    |k+G|² over |m_i| ≤ mmax, each ``mult`` times)."""
+    import numpy as np
+    vals = sorted(float(np.sum((np.asarray(k) + np.asarray(m) @ lat.B) ** 2))
+                  for m in itertools.product(range(-mmax, mmax + 1),
+                                             repeat=lat.dim))
+    ex = np.asarray(sorted(vals * mult)[:len(lam)])
+    return float(np.max(np.abs(lam - ex))) / max(float(ex.max()), 1.0)
+
+
 def phase_sweep(dev):
     """The headline warm sweep; returns the main path's launch count."""
     import numpy as np
@@ -548,13 +629,6 @@ def phase_sweep(dev):
     from bravais_tpu_torch.eigen import jacobi_cuda
 
     lat, kc, _, sweep = headline(dev)
-
-    def exact_bands(k, nb, mmax=3, mult=2):
-        vals = sorted(float(np.sum((np.asarray(k) + np.asarray(m) @ lat.B)
-                                   ** 2))
-                      for m in itertools.product(range(-mmax, mmax + 1),
-                                                 repeat=lat.dim))
-        return np.asarray(sorted(vals * mult)[:nb])
 
     walls, launches = [], None
     for p in range(PASSES + 1):
@@ -566,9 +640,8 @@ def phase_sweep(dev):
         torch.cuda.synchronize()
         launches = jacobi_cuda.launches
         expected = int(res.iterations.sum()) + len(kc)
-        errs = [np.max(np.abs(res.eigenvalues[i] - exact_bands(kc[i], NEV)))
-                / max(exact_bands(kc[i], NEV).max(), 1.0)
-                for i in range(len(kc))]
+        errs = [eig_error(res.eigenvalues[i], lat, k, mmax=3, mult=2)
+                for i, k in enumerate(kc)]
         err, resid = float(max(errs)), float(np.max(res.residuals))
         tag = "cold" if p == 0 else f"pass {p}"
         log("sweep", f"{tag}: {res.wall_s:.3f} s (host refine "
@@ -733,6 +806,236 @@ def phase_dielectric(dev, setup, passes=DIEL_PASSES):
     return got, len(kc) / wall
 
 
+def dense_bands(space, k, nev, alpha, beta, dev):
+    """The lowest ``nev`` eigenvalues of the dense complex128 pencil
+    (``assemble_h1``, assembled on the host) by a Cholesky-reduced eigh on
+    the card."""
+    import torch
+    from bravais_tpu_torch.operators.dense import assemble_h1
+
+    A, M = (torch.as_tensor(a, device=dev)
+            for a in assemble_h1(space, k, alpha=alpha, beta=beta))
+    L = torch.linalg.cholesky(M)
+    C = torch.linalg.solve_triangular(L, A, upper=False)      # L⁻¹A
+    C = torch.linalg.solve_triangular(L, C.mH, upper=False)   # L⁻¹AL⁻ᴴ
+    return torch.linalg.eigvalsh(0.5 * (C + C.mH))[:nev].cpu().numpy()
+
+
+def scalar_setup(dev):
+    """Config 1: (k-points, operator, BandSweep) of the SQR empty lattice
+    on the spectral engine (Γ not nudged, as bench.py leaves it)."""
+    import torch
+    from bravais_tpu_torch.bands.sweep import BandSweep
+    from bravais_tpu_torch.lattices import kpath, make_lattice
+    from bravais_tpu_torch.meshing.grid import PeriodicGrid
+    from bravais_tpu_torch.operators.helmholtz import BlochHelmholtz
+    from bravais_tpu_torch.spaces.h1 import H1Space
+
+    lat = make_lattice("SQR")
+    kc = kpath(lat, npts=NK).k_cart
+    sp = H1Space.make(PeriodicGrid.make(lat, SCALAR_N), SCALAR_P)
+    op = BlochHelmholtz(sp, dtype=torch.complex64, device=dev)
+    t0 = time.perf_counter()
+    solve = op.make_solve_fn()
+    fd = op.qp_fastdiag()
+    log("scalar", f"{sp.ndofs} dofs, B={fd.nblocks} blocks of D={fd.D}; "
+        f"host stencils {time.perf_counter() - t0:.2f} s")
+    return kc, op, BandSweep(op, solve, nev=NEV, tol=TOL,
+                             maxiter=H1_MAXITER, device_tol=SCALAR_DEVICE_TOL)
+
+
+def h1_setup(dev, tag, lattice, n, p, alpha, beta, kc, nev, block):
+    """A matrix-free scalar path: (k-points, operator, BandSweep with
+    ``precond="auto"``, which builds the multigrid hierarchy here)."""
+    import torch
+    from bravais_tpu_torch.bands.sweep import BandSweep
+    from bravais_tpu_torch.meshing.grid import PeriodicGrid
+    from bravais_tpu_torch.operators.helmholtz import BlochHelmholtz
+    from bravais_tpu_torch.spaces.h1 import H1Space
+
+    sp = H1Space.make(PeriodicGrid.make(lattice, n), p)
+    op = BlochHelmholtz(sp, alpha=alpha, beta=beta, dtype=torch.complex64,
+                        device=dev)
+    t0 = time.perf_counter()
+    sweep = BandSweep(op, nev=nev, block=block, tol=TOL, maxiter=H1_MAXITER,
+                      device_tol=H1_DEVICE_TOL)
+    lv = sweep.gmg.levels if sweep.gmg is not None else []
+    log(tag, f"{sp.ndofs} dofs, {sp.grid.n_elements} elements, q={sp.q}; "
+        f"precond {sweep.precond_mode}, levels "
+        + ", ".join(f"({x.op.space.grid.shape[0]}x{x.op.space.grid.shape[1]}"
+                    f" p{x.op.space.p})" for x in lv)
+        + f"; setup {time.perf_counter() - t0:.2f} s")
+    return kc, op, sweep
+
+
+def rods_setup(dev):
+    """Config 2 TM: SQR with ε = 8.9 rods, α = 1, β = ε."""
+    from bravais_tpu_torch.lattices import kpath, make_lattice
+    from bravais_tpu_torch.operators.coefficients import dielectric_rod
+
+    lat = make_lattice("SQR")
+    eps = dielectric_rod(RODS_EPS, 1.0, RODS_RADIUS, 0.5 * lat.A.sum(axis=0),
+                         lat.A)
+    return h1_setup(dev, "rods2d", lat, RODS_N, RODS_P, 1.0, eps,
+                    kpath(lat, npts=NK).k_cart, NEV, RODS_BLOCK)
+
+
+def te_setup(dev):
+    """The TE air-hole crystal at M: HEX2D, air holes in ε = 13, α = 1/ε,
+    β = 1."""
+    from bravais_tpu_torch.lattices import make_lattice
+    from bravais_tpu_torch.operators.coefficients import dielectric_rod
+
+    lat = make_lattice("HEX2D")
+    eps = dielectric_rod(1.0, TE_EPS, TE_RADIUS, 0.5 * lat.A.sum(axis=0),
+                         lat.A)
+    return h1_setup(dev, "te", lat, TE_N, TE_P, lambda x: 1.0 / eps(x), 1.0,
+                    lat.point_cart("M")[None], TE_NEV, TE_BLOCK)
+
+
+def expected_h1_launches(iterations, sweep):
+    """The kernel launches one pass of a scalar path makes, from its
+    iteration counts. Spectral engine: Jacobi once per iteration
+    (Rayleigh–Ritz) and once per k (start whitening), no element kernel.
+    Matrix-free: per k the h1 M-half once (start whitening), the fused
+    (A, M) once per iteration (W) and twice per 16-iteration segment (X
+    and P refresh), the "A" half once per operator apply of the
+    preconditioner (``launches_per_vcycle`` per iteration with GMG, none
+    with Jacobi); Jacobi as above."""
+    its = [int(i) for i in iterations]
+    out = {"h1 A": 0, "h1 AM": 0, "h1 M": 0,
+           "jacobi": sum(i + 1 for i in its)}
+    if getattr(sweep.solve_fn, "provides_support", False):
+        return out
+    v = sweep.gmg.launches_per_vcycle() if sweep.gmg is not None else 0
+    out.update({"h1 A": v * sum(its),
+                "h1 AM": sum(i + 2 * -(-i // 16) for i in its),
+                "h1 M": len(its)})
+    return out
+
+
+def phase_h1_path(dev, tag, setup, check, passes=H1_PASSES):
+    """One scalar path: a cold pass and ``passes`` timed ones, each with
+    every count set to 0 just before and read just after. ``check(res)``
+    returns (text, ok) for the path's own gates. Every pass's launches
+    must equal ``expected_h1_launches``. Returns (launches of one pass,
+    eig/s: the median over the timed passes)."""
+    import torch
+    from bravais_tpu_torch.eigen import jacobi_cuda
+    from bravais_tpu_torch.operators import h1_apply
+
+    kc, _, sweep = setup
+    walls, shares = [], []
+    for p in range(passes + 1):
+        torch.cuda.synchronize()
+        jacobi_cuda.launches = h1_apply.launches = 0
+        for want in h1_apply.launches_by_want:
+            h1_apply.launches_by_want[want] = 0
+        res = sweep.run_warm(kc)
+        torch.cuda.synchronize()
+        got = {"h1 A": h1_apply.launches_by_want["A"],
+               "h1 AM": h1_apply.launches_by_want["AM"],
+               "h1 M": h1_apply.launches_by_want["M"],
+               "jacobi": jacobi_cuda.launches}
+        want = expected_h1_launches(res.iterations, sweep)
+        text, ok = check(res)
+        ptag = "cold" if p == 0 else f"pass {p}"
+        share = res.refine_s / res.wall_s
+        log(tag, f"{ptag}: {res.wall_s:.3f} s (host refine {res.refine_s:.3f}"
+            f" s, share {share:.4f}), {len(kc) / res.wall_s:.4f} eig/s, "
+            f"iters/k {res.iterations.mean():.2f} {res.iterations.tolist()}, "
+            f"launches {got} (expected {want}); {text}")
+        if not ok:
+            raise RuntimeError(f"{tag}: a gate failed: {text}")
+        if got != want or any(got[key] <= 0 for key in want if want[key]):
+            raise RuntimeError(f"{tag}: kernel launches {got} != the path's "
+                               f"calls {want}")
+        if p:
+            walls.append(res.wall_s)
+            shares.append(share)
+    wall = statistics.median(walls)
+    log(tag, f"{len(kc) / wall:.4f} eig/s (median of {passes}; nk={len(kc)} /"
+        f" pass wall {wall:.4f} s), iters/k {res.iterations.mean():.2f}, "
+        f"host-refine share {statistics.median(shares):.4f}, launches per "
+        f"pass {got}")
+    return got, len(kc) / wall
+
+
+def phase_scalar(dev, setup):
+    """Config 1 against the analytic empty-lattice bands (bench.py's
+    measure: sorted |k+G|², mmax 5, multiplicity 1, over max(ex.max(), 1))
+    < 1e-6 with no refine fallback."""
+    import numpy as np
+    kc, op, _ = setup
+    lat = op.space.grid.lattice
+
+    def check(res):
+        err = max(eig_error(res.eigenvalues[i], lat, k, mmax=5, mult=1)
+                  for i, k in enumerate(kc))
+        return (f"max eig err {err:.3e} (<{ERR_BAR:g}), max refined residual "
+                f"{np.max(res.residuals):.3e}, refine fallbacks "
+                f"{res.fallbacks}", err < ERR_BAR and res.fallbacks == 0)
+    return phase_h1_path(dev, "scalar", setup, check)
+
+
+def band_errors(lam, ref):
+    """max |λ − λ_ref| relative to λ_ref, or to the top band where λ_ref
+    is below 1e-3 of it (band 1 at Γ, λ = 0)."""
+    import numpy as np
+    top = float(np.max(np.abs(ref)))
+    scale = np.where(np.abs(ref) > 1e-3 * top, np.abs(ref), top)
+    return float(np.max(np.abs(lam - ref) / scale))
+
+
+def phase_rods2d(dev, setup):
+    """Config 2 TM: refined bands 1–10 at k indices 0, 5, 10, 15 against
+    the dense complex128 oracle at the solved (float32) k, and the TM gap
+    against the published brackets."""
+    import numpy as np
+    kc, op, _ = setup
+    k32 = kc.astype(np.float32).astype(np.float64)
+    t0 = time.perf_counter()
+    oracle = {ki: dense_bands(op.space, k32[ki], NEV, op.alpha,
+                              op.beta, dev) for ki in RODS_ORACLE_K}
+    log("rods2d", f"dense oracle at k indices {list(oracle)}: "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    def check(res):
+        errs = {ki: band_errors(res.eigenvalues[ki], o)
+                for ki, o in oracle.items()}
+        f = np.sqrt(np.maximum(res.eigenvalues, 0.0)) / (2 * np.pi)
+        lo, hi = float(f[:, 0].max()), float(f[:, 1].min())
+        ratio = 2 * (hi - lo) / (hi + lo)
+        gap_ok = all(abs(v - c) < b for v, (c, b) in
+                     zip((lo, hi, ratio), TM_GAP))
+        ok = max(errs.values()) < RODS_REL_BAR and gap_ok
+        return (f"oracle errors " + ", ".join(f"k{ki} {e:.3e}"
+                                              for ki, e in errs.items())
+                + f" (<{RODS_REL_BAR:g}); TM gap {lo:.4f}-{hi:.4f}, ratio "
+                f"{ratio:.4f} (published {TM_GAP}); max refined residual "
+                f"{np.max(res.residuals):.3e}", ok)
+    return phase_h1_path(dev, "rods2d", setup, check)
+
+
+def phase_te(dev, setup):
+    """The TE air holes at M: GMG in use, bands 1–6 against the dense
+    oracle."""
+    import numpy as np
+    kc, op, sweep = setup
+    if sweep.precond_mode != "gmg":
+        raise RuntimeError(f"te: precond auto chose {sweep.precond_mode}")
+    k32 = kc[0].astype(np.float32).astype(np.float64)
+    oracle = dense_bands(op.space, k32, TE_NEV, op.alpha, op.beta,
+                         dev)
+
+    def check(res):
+        err = band_errors(res.eigenvalues[0], oracle)
+        return (f"oracle error {err:.3e} (<{RODS_REL_BAR:g}), GMG in use, max "
+                f"refined residual {np.max(res.residuals):.3e}",
+                err < RODS_REL_BAR)
+    return phase_h1_path(dev, "te", setup, check)
+
+
 def main():
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
 
@@ -761,14 +1064,18 @@ def main():
 
     jac_err = phase_kernels(dev)
     setup3 = dielectric(dev)
+    rods = rods_setup(dev)
     jac_err = max(jac_err, phase_jacobi_ltwin(dev, setup3[2]))
-    nd_err, h1_err = phase_elements(dev, setup3[2])
+    nd_err, h1_err = phase_elements(dev, setup3[2], rods)
     fcc_launches = phase_sweep(dev)
     diel, _ = phase_dielectric(dev, setup3)
+    scalar, _ = phase_scalar(dev, scalar_setup(dev))
+    rods2d, _ = phase_rods2d(dev, rods)
+    te, _ = phase_te(dev, te_setup(dev))
     # The profiler's phases come last, so that the launch-bound sweeps
     # run in a process it has not traced.
     phase_one_operation(dev, setup3[2])
-    times = kernel_times(dev, setup3[2])
+    times = kernel_times(dev, setup3[2], rods)
     log_times(times)
     jac, nd_rec, h1_rec = (
         {"name": name, "route": "cuda",
@@ -788,13 +1095,21 @@ def main():
             ("helmholtz_apply", "h1_apply",
              "bravais_tpu/operators/pallas/h1_apply.py:128", h1_err, "h1",
              "rows 16 k=0 A")))
-    jac["launches"] = fcc_launches + diel["jacobi"]
-    jac["launches_by_path"] = {"fcc_headline": fcc_launches,
-                               "config3_field": diel["jacobi"]}
+    jac["launches_by_path"] = {
+        "fcc_headline": fcc_launches, "config3_field": diel["jacobi"],
+        "config1_scalar": scalar["jacobi"], "config2_rods2d": rods2d["jacobi"],
+        "te_air_holes": te["jacobi"]}
+    jac["launches"] = sum(jac["launches_by_path"].values())
     nd_rec["launches"] = diel["nd M"] + diel["nd AM"] + diel["nd A"]
     nd_rec["launches_by_mode"] = {"M": diel["nd M"], "AM": diel["nd AM"],
                                   "A": diel["nd A"]}
-    h1_rec["launches"] = diel["h1"]
+    h1_rec["launches_by_path"] = {
+        "config3_field": diel["h1"],
+        "config2_rods2d": {w: rods2d[f"h1 {w}"] for w in ("A", "AM", "M")},
+        "te_air_holes": {w: te[f"h1 {w}"] for w in ("A", "AM", "M")}}
+    h1_rec["launches"] = diel["h1"] + sum(
+        v for path in (rods2d, te) for key, v in path.items()
+        if key.startswith("h1"))
     print(json.dumps({"kernels": [jac, nd_rec, h1_rec]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

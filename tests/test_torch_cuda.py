@@ -1,8 +1,9 @@
 """The port on a CUDA device: the hand-written Jacobi, Nédélec (nd) and
 H1 element kernels against their plain torch versions, the field
-engine's fused (A, M) apply on the card against the CPU, and the warm
-spectral and field sweeps on the card against the same sweeps on the
-CPU. Every test skips without a CUDA device.
+engine's and the scalar Helmholtz operator's fused (A, M) applies and one
+multigrid V-cycle on the card against the CPU, and the warm spectral,
+field and scalar sweeps on the card against the same sweeps on the CPU.
+Every test skips without a CUDA device.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without them:
@@ -16,6 +17,7 @@ import scipy.linalg
 import torch
 
 from bravais_tpu_torch.bands.sweep import BandSweep
+from bravais_tpu_torch.eigen.gmg import GMG
 from bravais_tpu_torch.eigen import jacobi_cuda
 from bravais_tpu_torch.eigen.jacobi_eigh import (jacobi_eigh,
                                                 jacobi_eigh_plain,
@@ -23,9 +25,11 @@ from bravais_tpu_torch.eigen.jacobi_eigh import (jacobi_eigh,
 from bravais_tpu_torch.lattices import kpath, make_lattice
 from bravais_tpu_torch.meshing.grid import PeriodicGrid
 from bravais_tpu_torch.operators import h1_apply, nd_apply
-from bravais_tpu_torch.operators.coefficients import (dielectric_sphere,
+from bravais_tpu_torch.operators.coefficients import (dielectric_rod,
+                                                      dielectric_sphere,
                                                       eval_coefficient)
 from bravais_tpu_torch.operators.curlcurl import BlochCurlCurl
+from bravais_tpu_torch.operators.helmholtz import BlochHelmholtz
 from bravais_tpu_torch.spaces.h1 import H1Space
 from bravais_tpu_torch.spaces.nedelec import NedelecSpace
 
@@ -308,3 +312,102 @@ def test_field_sweep_on_cuda_matches_cpu(cuda):
     np.testing.assert_allclose(r_gpu.eigenvalues, r_cpu.eigenvalues,
                                rtol=1e-6)
     assert np.max(r_gpu.residuals) < 1e-2
+
+
+def _rods_op(n, p, dev):
+    lat = make_lattice("SQR")
+    eps = dielectric_rod(8.9, 1.0, 0.2, 0.5 * lat.A.sum(axis=0), lat.A)
+    return BlochHelmholtz(H1Space.make(PeriodicGrid.make(lat, n), p),
+                          alpha=1.0, beta=eps, device=dev), eps
+
+
+@pytest.mark.parametrize("n,p", [(16, 3), (16, 1), (8, 1), (2, 1)])
+def test_helmholtz_applies_on_cuda_match_cpu(cuda, n, p):
+    """Config 2's operator and its multigrid levels' shapes, 16 rows, at
+    k ≠ 0: apply_AM, apply_A and apply_M on the card against the CPU."""
+    ops = {dev: _rods_op(n, p, dev)[0] for dev in ("cpu", cuda)}
+    rng = np.random.default_rng(6)
+    shp = (16,) + ops["cpu"].space.dof_shape
+    u = (rng.standard_normal(shp) + 1j * rng.standard_normal(shp)
+         ).astype(np.complex64)
+    k = np.asarray(make_lattice("SQR").k_cart((0.3, 0.1)))
+    ug = torch.as_tensor(u, device=cuda)
+    y_c, m_c = ops["cpu"].apply_AM(torch.as_tensor(u), k)
+    y_g, m_g = ops[cuda].apply_AM(ug, k)
+    assert _rel(y_g.cpu(), y_c) < 2e-5
+    assert _rel(m_g.cpu(), m_c) < 2e-5
+    assert _rel(ops[cuda].apply_A(ug, k).cpu(), y_c) < 2e-5
+    assert _rel(ops[cuda].apply_M(ug).cpu(), m_c) < 2e-5
+
+
+def test_vcycle_on_cuda_matches_cpu(cuda):
+    """One GMG V-cycle of config 2 cut to n=8 p=3 (levels (8, p3), (8, p1),
+    (4, p1), (2, p1)) on a 4-row block; every operator apply of it is one
+    h1 "A" launch."""
+    out = {}
+    rng = np.random.default_rng(7)
+    for dev in ("cpu", cuda):
+        op, _ = _rods_op(8, 3, dev)
+        gmg = GMG(op)
+        shp = (4,) + op.space.dof_shape
+        if dev == "cpu":
+            b = (rng.standard_normal(shp) + 1j * rng.standard_normal(shp)
+                 ).astype(np.complex64)
+        k = np.asarray(make_lattice("SQR").k_cart((0.3, 0.1)))
+        before = h1_apply.launches_by_want["A"]
+        out[str(dev)] = gmg.precond(k)(torch.as_tensor(b, device=dev))
+        launches = h1_apply.launches_by_want["A"] - before
+    assert launches == gmg.launches_per_vcycle() == 29
+    assert _rel(out[str(cuda)].cpu(), out["cpu"]) < 1e-5
+
+
+def test_scalar_spectral_sweep_on_cuda_matches_cpu(cuda):
+    """Config 1 cut small (SQR n=6 p=4, Γ–X–M–Γ npts=5, 4 bands): exact f64
+    block eigenvalues on both devices; Jacobi once per iteration and once
+    per k."""
+    lat = make_lattice("SQR")
+    kc = kpath(lat, npts=5).k_cart
+    out = {}
+    for dev in ("cpu", cuda):
+        op = BlochHelmholtz(H1Space.make(PeriodicGrid.make(lat, 6), 4),
+                            device=dev)
+        sweep = BandSweep(op, op.make_solve_fn(), nev=4, tol=1e-6,
+                          maxiter=400, device_tol=1e-3)
+        jacobi_cuda.launches = 0
+        out[str(dev)] = (sweep.run_warm(kc), jacobi_cuda.launches)
+    (r_cpu, _), (r_gpu, launches) = out["cpu"], out[str(cuda)]
+    assert launches == int(r_gpu.iterations.sum()) + len(kc)
+    assert np.all(np.abs(r_gpu.iterations - r_cpu.iterations) <= 2)
+    np.testing.assert_allclose(r_gpu.eigenvalues, r_cpu.eigenvalues,
+                               rtol=1e-9, atol=1e-12)
+    assert r_gpu.fallbacks == 0 and np.max(r_gpu.residuals) < 1e-10
+
+
+def test_rods_gmg_sweep_on_cuda_matches_cpu(cuda):
+    """Config 2 cut small (SQR ε = 8.9 rods n=8 p=2, npts=4, 4 bands in a
+    block of 8, precond auto → GMG): refined bands equal on both devices,
+    and the card's pass launched the h1 kernel as the path calls it."""
+    lat = make_lattice("SQR")
+    kc = kpath(lat, npts=4).k_cart
+    out = {}
+    for dev in ("cpu", cuda):
+        op, _ = _rods_op(8, 2, dev)
+        sweep = BandSweep(op, nev=4, block=8, tol=1e-6, maxiter=400,
+                          device_tol=1e-4)
+        for want in h1_apply.launches_by_want:
+            h1_apply.launches_by_want[want] = 0
+        jacobi_cuda.launches = 0
+        res = sweep.run_warm(kc)
+        out[str(dev)] = (res, dict(h1_apply.launches_by_want),
+                         jacobi_cuda.launches, sweep)
+    (r_cpu, *_), (r_gpu, h1, jac, sweep) = out["cpu"], out[str(cuda)]
+    its = [int(i) for i in r_gpu.iterations]
+    assert sweep.precond_mode == "gmg"
+    assert h1 == {"A": sweep.gmg.launches_per_vcycle() * sum(its),
+                  "AM": sum(i + 2 * -(-i // 16) for i in its),
+                  "M": len(its)}
+    assert jac == sum(i + 1 for i in its)
+    assert np.all(np.abs(r_gpu.iterations - r_cpu.iterations) <= 2)
+    np.testing.assert_allclose(r_gpu.eigenvalues, r_cpu.eigenvalues,
+                               rtol=1e-6, atol=1e-9)
+    assert np.max(r_gpu.residuals) < 1e-3

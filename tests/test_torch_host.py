@@ -50,11 +50,14 @@ def _assert_same(a, b, path=""):
         assert a == b, (path, a, b)
 
 
-@pytest.mark.parametrize("name", ["FCC", "CUB", "HEX"])
+@pytest.mark.parametrize("name", ["FCC", "CUB", "HEX", "SQR", "HEX2D"])
 def test_lattice_and_kpath_match_reference(name):
     _assert_same(make_lattice(name), make_lattice_ref(name), name)
     lat, ref = make_lattice(name), make_lattice_ref(name)
     _assert_same(kpath(lat, npts=17), kpath_ref(ref, npts=17), "kpath")
+    for label in lat.points:
+        np.testing.assert_array_equal(lat.point_cart(label),
+                                      ref.point_cart(label), err_msg=label)
 
 
 @pytest.mark.parametrize("name,shape", [("FCC", (5, 4, 6)), ("HEX", 4)])
@@ -103,6 +106,10 @@ def test_import_keeps_jax_out():
             "bravais_tpu_torch.bands.sweep, "
             "bravais_tpu_torch.operators.curlcurl, "
             "bravais_tpu_torch.operators.qplaplace, "
+            "bravais_tpu_torch.operators.helmholtz, "
+            "bravais_tpu_torch.operators.dense, "
+            "bravais_tpu_torch.eigen.gmg, "
+            "bravais_tpu_torch.eigen.precond, "
             "bravais_tpu_torch.eigen.refine, "
             "bravais_tpu_torch.eigen.jacobi_cuda, "
             "bravais_tpu_torch.utils.timing; "
