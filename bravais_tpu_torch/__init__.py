@@ -23,7 +23,18 @@ across.
 
 __version__ = "0.1.0"
 
-import torch as _torch
+import os as _os
+
+# The host f64 refine runs numpy's and scipy's LAPACK (OpenBLAS) on small
+# dense matrices. A multi-threaded OpenBLAS thrashes on those on a shared
+# host (measured on an H100 machine: 9 s against 0.4 s a refine of 35
+# blocks), so cap it unless the caller set it. This must come before
+# torch, which loads numpy: it takes effect in a process that has not
+# loaded numpy yet, as ``python -m bravais_tpu_torch``. MKL is left alone:
+# torch's own CPU thread count follows MKL_NUM_THREADS.
+_os.environ.setdefault("OPENBLAS_NUM_THREADS", "1")
+
+import torch as _torch  # noqa: E402
 
 # Reduced-precision contractions (TF32 keeps ~3 decimal digits) break the
 # LOBPCG Gram matrices and the whitening; the counterpart of the JAX

@@ -1,10 +1,9 @@
-"""Warm-started k-path band sweep.
+"""k-path band sweeps: warm-started and cold.
 
-Port of ``BandSweep.__init__`` (the refine and ``device_tol`` rules, the
-preconditioner choice), the built-in solve, ``_refine_host`` and
-``run_warm`` from ``bravais_tpu/bands/sweep.py``. Each k is solved on the
-device from the previous k's eigenvector block (which stays on the
-device), then refined in f64 on the host. The solve is an engine's
+Port of ``BandSweep`` (the refine and ``device_tol`` rules, the
+preconditioner choice, the built-in solve, ``_refine_host``, ``run_warm``
+and ``run``) from ``bravais_tpu/bands/sweep.py``. Each k is solved on the
+device, then refined in f64 on the host. The solve is an engine's
 ``solve_fn`` or, without one, the built-in LOBPCG on the operator's
 matrix-free ``apply_A``/``apply_M`` with its fused ``apply_AM`` and a
 Jacobi or geometric-multigrid preconditioner. The refine:
@@ -18,10 +17,17 @@ Jacobi or geometric-multigrid preconditioner. The refine:
   the host and refines it with ``host_rayleigh_ritz`` on its lowest
   nev+2 rows.
 
+``run_warm`` starts each k from the previous k's eigenvector block (which
+stays on the device); ``run`` starts every k from the seeded start block.
+With a ``writer`` (``bands.io.BandWriter``) each finished k (``run_warm``)
+or chunk (``run``) is on disk at once, so a killed sweep resumes where it
+stopped.
+
 The reference overlaps the host refine of k with the device solve of
-k+1; this host-driven loop runs them one after the other. The batched
-``run``, the chain/segment modes and the near-Γ loose stop are not
-ported.
+k+1, and its ``run`` solves a chunk's k-points as one vmapped program;
+this host-driven loop runs them one after the other (a LOBPCG with a
+leading k axis is later work). The chain/segment modes, the sharded
+sweeps and the near-Γ loose stop are not ported.
 """
 
 from __future__ import annotations
@@ -57,6 +63,9 @@ class SweepResult:
     fallbacks   : k-points whose spectral refine failed its cross-check
                   (or had an empty support) and went to the host
                   Rayleigh–Ritz
+    eigenvectors: (nk, nev, *dof_shape) complex device modes (the solve's
+                  eigenvector rows, before the refine), host; only with
+                  ``keep_vectors``
     """
 
     eigenvalues: np.ndarray
@@ -65,6 +74,7 @@ class SweepResult:
     wall_s: float
     refine_s: float = 0.0
     fallbacks: int = 0
+    eigenvectors: Optional[np.ndarray] = None
 
 
 class BandSweep:
@@ -86,13 +96,19 @@ class BandSweep:
                  multigrid for a ``BlochHelmholtz`` whose coefficients
                  vary between elements, Jacobi otherwise), "jacobi",
                  "gmg", None, or a callable k ↦ block preconditioner.
+    seed       : numpy seed of the start block.
+    keep_vectors : return each k's eigenvector rows in
+                 ``SweepResult.eigenvectors`` (for mode dumps).
     """
 
     def __init__(self, operator, solve_fn: Optional[Callable] = None,
                  nev: int = 10, block: Optional[int] = None,
                  tol: float = 1e-6, maxiter: int = 200,
-                 device_tol: Optional[float] = None, precond="auto"):
+                 device_tol: Optional[float] = None, precond="auto",
+                 seed: int = SEED, keep_vectors: bool = False):
         self.op = operator
+        self.seed = seed
+        self.keep_vectors = keep_vectors
         self.solve_fn = solve_fn if solve_fn is not None else self._solve
         self.nev = nev
         self.m = block if block is not None else nev + max(4, nev // 2)
@@ -143,15 +159,17 @@ class BandSweep:
         """The built-in solve: LOBPCG on (A(k), M) with the fused (A, M)
         element apply and the resolved preconditioner; no block support."""
         op = self.op
-        return lobpcg(lambda x: op.apply_A(x, k), op.apply_M, X0, nev,
-                      maxiter=maxiter, tol=tol, precond=self._make_precond(k),
+        # M gets k too: a BlochCurlCurl mass wraps with the Bloch phases.
+        return lobpcg(lambda x: op.apply_A(x, k), lambda x: op.apply_M(x, k),
+                      X0, nev, maxiter=maxiter, tol=tol,
+                      precond=self._make_precond(k),
                       AM=lambda x: op.apply_AM(x, k),
                       rr_tol=PROD_RR_TOL), None
 
     def _x0(self) -> torch.Tensor:
-        """Start block from ``np.random.default_rng(SEED)``, drawn as the
+        """Start block from ``np.random.default_rng(seed)``, drawn as the
         reference draws it (real and imaginary planes)."""
-        rng = np.random.default_rng(SEED)
+        rng = np.random.default_rng(self.seed)
         sp = self.op.space
         shp = (self.m,) + tuple(getattr(sp, "field_shape", sp.dof_shape))
         t = torch.as_tensor(np.stack([rng.standard_normal(shp),
@@ -185,35 +203,88 @@ class BandSweep:
                                       self.nev, rows=X.shape[0])
         return lam, res, True
 
-    def run_warm(self, k_cart: np.ndarray) -> SweepResult:
-        """Sequential sweep, each k warm-started from the previous
-        eigenvector block. The k-points are rounded to the device's real
-        precision first, as the reference does: the solve and the f64
-        refine see the same k."""
+    def _solve_refined(self, X, k):
+        """Solve at k from the block ``X`` and refine; returns (eigenvalues,
+        iterations, residuals, seconds in the refine, fell back, the
+        solve's eigenvector block on the device)."""
+        r, support = self.solve_fn(X, k, self.nev, self.tol, self.maxiter)
+        lam = r.eigenvalues.double().cpu().numpy()
+        res = r.residual_norms.double().cpu().numpy()
+        dt, fell = 0.0, False
+        if self.refine:
+            sup = (support.double().cpu().numpy()
+                   if support is not None else None)
+            t1 = time.perf_counter()
+            lam, res, fell = self._refine_host(lam, sup, r.eigenvectors, k)
+            dt = time.perf_counter() - t1
+        return lam, r.iterations, res, dt, fell, r.eigenvectors
+
+    def _rounded(self, k_cart) -> np.ndarray:
+        """The k-points rounded to the device's real precision, as the
+        reference rounds them: the solve and the f64 refine see the same
+        k."""
         rdtype = torch.empty((), dtype=self.op.rdtype).numpy().dtype
-        k_cart = np.asarray(k_cart, rdtype)
-        X = self._x0()
-        lams, itss, ress = [], [], []
-        refine_s, fallbacks = 0.0, 0
-        t0 = time.perf_counter()
-        for k in k_cart:
-            r, support = self.solve_fn(X, k, self.nev, self.tol,
-                                       self.maxiter)
-            lam = r.eigenvalues.double().cpu().numpy()
-            res = r.residual_norms.double().cpu().numpy()
-            if self.refine:
-                sup = (support.double().cpu().numpy()
-                       if support is not None else None)
-                t1 = time.perf_counter()
-                lam, res, fell = self._refine_host(lam, sup,
-                                                   r.eigenvectors, k)
-                refine_s += time.perf_counter() - t1
-                fallbacks += fell
-            lams.append(lam)
-            itss.append(r.iterations)
-            ress.append(res)
-            X = r.eigenvectors
-        wall = time.perf_counter() - t0
+        return np.asarray(k_cart, rdtype)
+
+    def _result(self, rows, wall, vecs) -> SweepResult:
+        lams, itss, ress, dts, fells = zip(*rows)
         return SweepResult(np.asarray(lams), np.asarray(itss, np.int32),
-                           np.asarray(ress), wall_s=wall, refine_s=refine_s,
-                           fallbacks=fallbacks)
+                           np.asarray(ress), wall_s=wall,
+                           refine_s=float(sum(dts)),
+                           fallbacks=int(sum(fells)),
+                           eigenvectors=(np.stack(vecs)
+                                         if vecs is not None else None))
+
+    def run_warm(self, k_cart: np.ndarray, writer=None,
+                 k_index: Optional[np.ndarray] = None) -> SweepResult:
+        """Sequential sweep, each k warm-started from the previous
+        eigenvector block. With ``writer``, every finished k is written
+        at once under its global index ``k_index[i]`` (default i)."""
+        k_cart = self._rounded(k_cart)
+        X = self._x0()
+        rows, vecs = [], [] if self.keep_vectors else None
+        t0 = time.perf_counter()
+        for i, k in enumerate(k_cart):
+            *row, X = self._solve_refined(X, k)
+            rows.append(row)
+            if vecs is not None:
+                vecs.append(X[:self.nev].cpu().numpy())
+            if writer is not None:
+                lam, its, res = row[:3]
+                gi = int(k_index[i]) if k_index is not None else i
+                writer.write_chunk([gi], lam[None, :self.nev], [its],
+                                   res[None, :self.nev])
+        return self._result(rows, time.perf_counter() - t0, vecs)
+
+    def run(self, k_cart: np.ndarray, chunk: Optional[int] = None,
+            writer=None, k_index: Optional[np.ndarray] = None
+            ) -> SweepResult:
+        """Cold sweep: every k solved from the seeded start block, in
+        chunks of ``chunk`` k-points (default all). With ``writer``, each
+        finished chunk is written at once under the global indices
+        ``k_index`` (default 0..nk-1). The reference solves a chunk as
+        one vmapped program; here the k-points of a chunk run one after
+        the other (a LOBPCG with a leading k axis is later work), so
+        ``chunk`` sets only how often the writer is called."""
+        k_cart = self._rounded(k_cart)
+        nk = len(k_cart)
+        chunk = chunk or nk
+        X0 = self._x0()
+        rows, vecs = [], [] if self.keep_vectors else None
+        t0 = time.perf_counter()
+        for s in range(0, nk, chunk):
+            part = []
+            for k in k_cart[s:s + chunk]:
+                *row, X = self._solve_refined(X0, k)
+                part.append(row)
+                if vecs is not None:
+                    vecs.append(X[:self.nev].cpu().numpy())
+            rows.extend(part)
+            if writer is not None:
+                gidx = (k_index[s:s + len(part)] if k_index is not None
+                        else range(s, s + len(part)))
+                lam, its, res = (np.asarray(c) for c in
+                                 list(zip(*part))[:3])
+                writer.write_chunk(gidx, lam[:, :self.nev], its,
+                                   res[:, :self.nev])
+        return self._result(rows, time.perf_counter() - t0, vecs)

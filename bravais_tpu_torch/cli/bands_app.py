@@ -1,0 +1,243 @@
+"""Band-structure CLI — port of ``bravais_tpu/cli/bands_app.py``.
+
+    python -m bravais_tpu_torch --lattice SQR --problem tm \
+        --eps-in 8.9 --radius 0.2 --n 16 --p 3 --nk 48 --nev 8 \
+        --out results/sq_tm
+
+Wires config -> lattice -> mesh -> operator -> k-sweep -> band table
+(+ checkpoint/resume, one JSON line per k, optional plot and mode
+dumps). Runs on the CUDA device unless ``--device cpu`` (or
+``--precision f64``, which runs on the host) is given; without a card it
+exits with an error instead of falling back to the CPU. What the port
+lacks exits with an error that names it: the ``gmg`` Maxwell engine
+(and ``auto`` on a grid with n < 3), which needs the reference's QPGMG;
+``--mode warm-chain``; ``--shard``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+
+class Unsupported(ValueError):
+    """A configuration the port does not run; the CLI exits with its
+    message."""
+
+
+def resolve_device(cfg) -> str:
+    """The torch device of a run: ``cfg.device``, or "cuda" — "cpu" under
+    ``precision="f64"``, which the card does not run. Raises
+    ``Unsupported`` for an f64 run on the card, an unknown device, and a
+    CUDA run without a card."""
+    import torch
+    if cfg.precision not in ("f32", "f64"):
+        raise Unsupported(f"unknown precision {cfg.precision!r}")
+    dev = cfg.device or ("cpu" if cfg.precision == "f64" else "cuda")
+    if dev not in ("cuda", "cpu"):
+        raise Unsupported(f"--device must be 'cuda' or 'cpu', got {dev!r}")
+    if dev == "cuda" and cfg.precision == "f64":
+        raise Unsupported("--precision f64 runs on the CPU: drop "
+                          "--device cuda or pass --device cpu")
+    if dev == "cuda" and not torch.cuda.is_available():
+        raise Unsupported("no CUDA device: pass --device cpu to run on the "
+                          "CPU")
+    return dev
+
+
+def check_modes(cfg) -> None:
+    """Raise ``Unsupported`` for the execution modes the port lacks."""
+    if cfg.mode == "warm-chain":
+        raise Unsupported("--mode warm-chain is not ported (it amortizes a "
+                          "remote-TPU launch round trip); use --mode warm "
+                          "or batched")
+    if cfg.mode not in ("warm", "batched"):
+        raise Unsupported(f"unknown --mode {cfg.mode!r}")
+    if cfg.shard:
+        raise Unsupported("--shard (multi-GPU k sharding) is not ported "
+                          "yet")
+    if cfg.plot:
+        import importlib.util
+        if importlib.util.find_spec("matplotlib") is None:
+            raise Unsupported("--plot needs matplotlib, which is not "
+                              "installed")
+
+
+def build_problem(cfg, device):
+    """Config -> (lattice, kpath, operator) on ``device``."""
+    from bravais_tpu_torch.lattices import kpath, make_lattice
+    from bravais_tpu_torch.meshing.grid import PeriodicGrid
+    from bravais_tpu_torch.operators.coefficients import (dielectric_rod,
+                                                          subcell_average)
+
+    lat = make_lattice(cfg.lattice, **cfg.lattice_kwargs())
+    kp = kpath(lat, npts=cfg.nk, path=cfg.path)
+    grid = PeriodicGrid.make(lat, cfg.n)
+    eps = cfg.eps_out
+    if cfg.radius > 0:
+        # A rod in 2D, a sphere in 3D: the periodic distance is the same.
+        eps = dielectric_rod(cfg.eps_in, cfg.eps_out, cfg.radius * cfg.a,
+                             0.5 * lat.A.sum(axis=0), lat.A,
+                             cfg.smooth_width)
+
+    if cfg.problem in ("tm", "te", "scalar"):
+        from bravais_tpu_torch.operators.helmholtz import BlochHelmholtz
+        from bravais_tpu_torch.spaces.h1 import H1Space
+        sp = H1Space.make(grid, cfg.p, cfg.quad)
+        qcell = lat.A / (cfg.n * sp.q)   # quadrature subcell vectors
+        if cfg.problem == "te":
+            # TE (H_z): α = 1/ε, β = 1; subcell smoothing averages 1/ε,
+            # the coefficient the weak form integrates.
+            inv = (lambda x: 1.0 / eps(x)) if callable(eps) else 1.0 / eps
+            if cfg.subcell > 1 and callable(inv):
+                inv = subcell_average(inv, qcell, cfg.subcell)
+            op = BlochHelmholtz(sp, alpha=inv, beta=1.0, dtype=cfg.dtype,
+                                device=device)
+        else:
+            # TM (E_z) and the generic scalar problem: α = 1, β = ε.
+            if cfg.subcell > 1 and callable(eps):
+                eps = subcell_average(eps, qcell, cfg.subcell)
+            op = BlochHelmholtz(sp, alpha=1.0, beta=eps, dtype=cfg.dtype,
+                                device=device)
+        return lat, kp, op
+    if cfg.problem == "maxwell":
+        from bravais_tpu_torch.operators.curlcurl import BlochCurlCurl
+        from bravais_tpu_torch.spaces.nedelec import NedelecSpace
+        sp = NedelecSpace.make(grid, cfg.p, cfg.quad)
+        if cfg.subcell > 1 and callable(eps):
+            eps = subcell_average(eps, lat.A / (cfg.n * sp.q), cfg.subcell)
+        return lat, kp, BlochCurlCurl(sp, eps=eps, dtype=cfg.dtype,
+                                      device=device)
+    raise Unsupported(f"unknown problem {cfg.problem!r}")
+
+
+def make_solve_fn(cfg, op):
+    """The engine rule: the solve hook per problem family and engine.
+
+    Scalar problems: the spectral engine where it is exact (element-
+    invariant coefficients, n ≥ 3 per axis) unless another engine is
+    asked for, else None (the built-in LOBPCG with GMG or Jacobi).
+    Maxwell: "auto" is "spectral" for invariant ε, "field" for varying ε,
+    "gmg" on a grid with n < 3; "spectral" → ``make_spectral_solve_fn``;
+    "field" → ``make_solve_fn`` with the exact "project" deflation for
+    invariant ε and "project-cheby" for varying ε; "gmg" raises
+    ``Unsupported`` (it needs the reference's QPGMG)."""
+    fd_ok = min(op.space.grid.shape) >= 3
+    invariant = op._coef_elem_invariant()
+    if cfg.problem != "maxwell":
+        if cfg.engine in ("auto", "spectral") and fd_ok and invariant:
+            return op.make_solve_fn()
+        return None
+    engine = cfg.engine
+    if engine == "auto":
+        engine = ("gmg" if not fd_ok else
+                  "spectral" if invariant else "field")
+    if engine == "spectral":
+        if not (fd_ok and invariant):
+            raise Unsupported("--engine spectral needs element-invariant "
+                              "coefficients and n >= 3 per axis; use "
+                              "--engine field")
+        return op.make_spectral_solve_fn()
+    if engine == "field":
+        return op.make_solve_fn(
+            deflation="project" if invariant else "project-cheby")
+    if engine == "gmg":
+        raise Unsupported(
+            "the gmg Maxwell engine (also --engine auto on a grid with "
+            "n < 3) needs QPGMG, which the port does not have; use n >= 3 "
+            "with --engine field or spectral")
+    raise Unsupported(f"unknown --engine {engine!r}")
+
+
+def run(cfg, log=print):
+    """Run the band structure of ``cfg``; returns the ``BandWriter`` (None
+    without ``cfg.out``). Raises ``Unsupported`` for what the port does
+    not run."""
+    import numpy as np
+
+    from bravais_tpu_torch.bands import (BandSweep, BandWriter, plot_bands,
+                                         save_modes)
+
+    device = resolve_device(cfg)
+    check_modes(cfg)
+    t0 = time.perf_counter()
+    lat, kp, op = build_problem(cfg, device)
+    note = " (f64 runs on the CPU)" if cfg.precision == "f64" else ""
+    log(f"# {lat.variant}: {op.space.ndofs} dofs, {kp.nk} k-points, "
+        f"nev={cfg.nev}, tol={cfg.tol:g}, {cfg.precision} on "
+        f"{device}{note}")
+
+    sweep = BandSweep(op, make_solve_fn(cfg, op), nev=cfg.nev,
+                      block=cfg.block, tol=cfg.tol, maxiter=cfg.maxiter,
+                      device_tol=cfg.device_tol, precond=cfg.precond,
+                      seed=cfg.seed, keep_vectors=cfg.save_modes)
+
+    writer = None
+    finished = []
+    if cfg.out:
+        writer = BandWriter(cfg.out, cfg.identity_dict(), kp.nk, cfg.nev)
+        if cfg.resume:
+            finished = writer.try_resume()
+    todo = [i for i in range(kp.nk) if i not in set(finished)]
+    if not todo:
+        log("# all k-points already finished (resume)")
+        return writer
+
+    kcart = kp.k_cart[todo].copy()
+    if cfg.problem == "maxwell":
+        # Exact Γ is the harmonic point of the quasi-periodic Maxwell
+        # formulation: the gradient deflation is rank-deficient there.
+        # Nudge it off-centre as the reference does; the ω² → 0 bands are
+        # recovered to the same accuracy at the nudged point.
+        for j in range(kcart.shape[0]):
+            if np.linalg.norm(kcart[j]) < 1e-12:
+                kcart[j] = 2e-2 * lat.B[0]
+    todo_np = np.asarray(todo)
+    # Each finished k (warm) or chunk (batched) is on disk at once.
+    if cfg.mode == "warm":
+        res = sweep.run_warm(kcart, writer=writer, k_index=todo_np)
+    else:
+        res = sweep.run(kcart, writer=writer, k_index=todo_np)
+
+    for j, i in enumerate(todo):
+        log(json.dumps({"k_index": i,
+                        "k_frac": [round(float(x), 6) for x in kp.k_frac[i]],
+                        "iters": int(res.iterations[j]),
+                        "max_rel_res": float(np.max(res.residuals[j])),
+                        "eigenvalues": [float(v)
+                                        for v in res.eigenvalues[j]]}))
+    if cfg.save_modes and cfg.out:
+        for j, i in enumerate(todo):
+            save_modes(cfg.out, i, kp.k_cart[i], res.eigenvalues[j],
+                       res.eigenvectors[j])
+        log(f"# modes saved for {len(todo)} k-points under {cfg.out}")
+    if writer is not None and cfg.plot:
+        import pathlib
+        plot_bands(kp, writer.eigenvalues,
+                   path=pathlib.Path(cfg.out) / "bands.png",
+                   title=f"{lat.variant} {cfg.problem.upper()}")
+    log(f"# done: wall {res.wall_s:.2f}s (host refine {res.refine_s:.2f}s), "
+        f"total {time.perf_counter() - t0:.1f}s, "
+        f"mean iters {float(np.mean(res.iterations)):.1f}")
+    return writer
+
+
+def main(argv=None):
+    from bravais_tpu_torch.cli.config import RunConfig
+    ap = argparse.ArgumentParser(
+        prog="python -m bravais_tpu_torch",
+        description="Photonic band structures (the PyTorch/CUDA port).",
+        epilog="Runs on the CUDA device; --device cpu runs on the host.")
+    RunConfig.add_cli_args(ap)
+    cfg = RunConfig.from_cli_args(ap.parse_args(argv))
+    try:
+        run(cfg)
+    except Unsupported as e:
+        ap.error(str(e))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -345,14 +345,21 @@ Kernel pick_want(int want) {
                    : want == 2 ? nd_apply_kernel<LL, QQ, 2> : nd_apply_kernel<LL, QQ, 3>;
 }
 
-// The repository's shapes: config 3 (p = 3: l = 4, q = 5) and the tests'
-// p = 2 (l = 3, q = 4); any other shape runs with runtime extents.
-int shape_id(int l, int q) { return l == 4 && q == 5 ? 0 : l == 3 && q == 4 ? 1 : 2; }
+// The repository's shapes: config 3 (p = 3: l = 4, q = 5), the FCC field
+// path of config 4 (p = 4: l = 5, q = 6) and the tests' p = 2 (l = 3,
+// q = 4); any other shape runs with runtime extents.
+constexpr int kShapes = 4;  // the three instantiations and the runtime one
+int shape_id(int l, int q) {
+  return l == 4 && q == 5 ? 0 : l == 5 && q == 6 ? 1 : l == 3 && q == 4 ? 2 : 3;
+}
 
 Kernel pick(int l, int q, int want) {
-  const int id = shape_id(l, q);
-  return id == 0 ? pick_want<4, 5>(want) : id == 1 ? pick_want<3, 4>(want)
-                                                   : pick_want<0, 0>(want);
+  switch (shape_id(l, q)) {
+    case 0: return pick_want<4, 5>(want);
+    case 1: return pick_want<5, 6>(want);
+    case 2: return pick_want<3, 4>(want);
+    default: return pick_want<0, 0>(want);
+  }
 }
 
 struct Config {
@@ -388,7 +395,7 @@ int configure(int q, int l, int want, int nelem, int rows, Config* c) {
   // Above 48 KB a block's dynamic shared memory needs an opt-in, once per
   // kernel and device (the largest size asked so far).
   if (c->smem > 48 * 1024) {
-    static int opted[3][3][32] = {};  // [shape][want - 1][device]
+    static int opted[kShapes][3][32] = {};  // [shape][want - 1][device]
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return (int)err;

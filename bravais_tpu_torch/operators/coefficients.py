@@ -5,7 +5,8 @@ Port of ``CoefLike`` and ``eval_coefficient`` from
 of ``bravais_tpu/operators/coefficients.py`` (``periodic_distance``,
 ``smoothed_indicator``, ``dielectric_rod``, ``dielectric_sphere``):
 material interfaces are resolved in the coefficient, sampled at the
-quadrature points. ``subcell_average`` is not ported yet.
+quadrature points, optionally averaged over each quadrature subcell
+(``subcell_average``).
 
 Shape predicates take physical coordinates ``x`` (..., d).
 """
@@ -18,7 +19,8 @@ from typing import Callable, Union
 import numpy as np
 
 __all__ = ["CoefLike", "eval_coefficient", "periodic_distance",
-           "smoothed_indicator", "dielectric_rod", "dielectric_sphere"]
+           "smoothed_indicator", "dielectric_rod", "dielectric_sphere",
+           "subcell_average"]
 
 CoefLike = Union[float, np.ndarray, Callable[[np.ndarray], np.ndarray]]
 
@@ -71,3 +73,25 @@ def dielectric_rod(eps_in: float, eps_out: float, radius: float,
 
 # 3D: the same formula — the periodic distance handles it.
 dielectric_sphere = dielectric_rod
+
+
+def subcell_average(fn: Callable, cell_vectors: np.ndarray,
+                    nsub: int = 4) -> Callable:
+    """Subcell smoothing: the mean of ``fn`` over an ``nsub``^d midpoint
+    grid spanning the cell around each sample point, so the weak form
+    integrates the locally averaged material instead of a pointwise-
+    sampled sharp interface. ``cell_vectors``: (d, d) rows spanning the
+    cell in physical coordinates — ``lattice.A / (n * q)``, the
+    quadrature-point spacing. TM averages ε, TE 1/ε (the coefficient its
+    weak form integrates)."""
+    V = np.asarray(cell_vectors, np.float64)
+    d = V.shape[0]
+    ax = [(np.arange(nsub) + 0.5) / nsub - 0.5 for _ in range(d)]
+    mesh = np.meshgrid(*ax, indexing="ij")
+    disp = np.stack([m.ravel() for m in mesh], axis=-1) @ V  # (nsub^d, d)
+
+    def avg(x: np.ndarray) -> np.ndarray:
+        x = np.asarray(x, np.float64)
+        return np.mean(fn(x[..., None, :] + disp), axis=-1)
+
+    return avg

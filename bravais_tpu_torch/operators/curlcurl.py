@@ -25,13 +25,15 @@ What is here:
   (``operators/nd_apply.py``, on CUDA ``csrc/nd_apply.cu``), the discrete
   gradient ``apply_Gk``/``apply_GkH``, the deflation Laplacian
   ``apply_Lk`` through ``QPLaplace`` (the H1 kernel, ``csrc/h1_apply.cu``),
-  the preconditioned-Chebyshev gradient projector and
-  ``make_solve_fn`` (the reference's ``deflation="project-cheby"``,
-  ``precond="fastdiag"``).
+  the exact fast-diagonal and the preconditioned-Chebyshev gradient
+  projectors and ``make_solve_fn`` (the reference's ``deflation`` values
+  "project" and "project-cheby", ``precond="fastdiag"``);
+* the operator diagonals ``diag_A``/``diag_M`` (the built-in sweep's
+  Jacobi preconditioner).
 
-Not ported yet: the other deflations and preconditioners of
-``make_solve_fn`` (``fd_precond_cg`` among them), the operator
-diagonals, the varying-ε branch of ``gradient_component_np``.
+Not ported: the reference's other deflations and preconditioners
+(``fd_precond_cg`` among them) and the varying-ε branch of
+``gradient_component_np``.
 """
 
 from __future__ import annotations
@@ -554,33 +556,39 @@ class BlochCurlCurl:
         ebar = float(np.mean(e))
         return float(e.min()) / ebar, float(e.max()) / ebar
 
-    def cheby_steps(self) -> int:
-        """Chebyshev steps for ~``CHEBY_TARGET`` kernel contraction per
+    def cheby_steps(self, target: float = CHEBY_TARGET) -> int:
+        """Chebyshev steps for ~``target`` kernel contraction per
         application: ⌈ln(2/target)/ln(1/ρ)⌉, ρ = (√κ−1)/(√κ+1), at
-        least 4."""
+        least 4. A target below the production ``CHEBY_TARGET`` deepens
+        the projector for f64 oracle solves, whose low residuals the
+        production projector's leakage would cap."""
         a, b = self.cheby_bounds()
         kappa = b / max(a, 1e-12)
         sq = np.sqrt(max(kappa, 1.0 + 1e-12))
         rho = (sq - 1.0) / (sq + 1.0)
         if rho <= 0.0:
             return 4
-        return int(max(4, np.ceil(np.log(2.0 / CHEBY_TARGET)
+        return int(max(4, np.ceil(np.log(2.0 / target)
                                   / np.log(1.0 / rho))))
 
     def gradient_component_cheby(self, u: torch.Tensor, k=None, *,
-                                 ph=None, lsolve=None) -> torch.Tensor:
+                                 ph=None, lsolve=None,
+                                 steps: int | None = None) -> torch.Tensor:
         """P u ≈ G L⁻¹ Gᴴ M u by preconditioned Chebyshev on the true
         L = GᴴM_εG with the mean-ε fast-diagonal solve as preconditioner:
         a fixed polynomial that contracts the kernel component at any
         contrast and whose output lies in range(G), so it only ever moves
         the gradient component. ``u``: block (rows, 3, N₁, N₂, N₃);
-        ``lsolve``: the mean-ε L-twin solver at k (built if not given)."""
+        ``lsolve``: the mean-ε L-twin solver at k (built if not given);
+        ``steps``: default ``cheby_steps()``."""
         a, b = self.cheby_bounds()
         if ph is None:
             ph = self.phases(k)
         if lsolve is None:
             lsolve = self.fastdiag_L().solver([("L", 1.0)], k,
                                               method="eigh")
+        if steps is None:
+            steps = self.cheby_steps()
         rhs = self.apply_GkH(self.apply_M(u, ph=ph), ph=ph)
         theta = 0.5 * (b + a)
         delta = max(0.5 * (b - a), 1e-12 * theta)
@@ -592,7 +600,7 @@ class BlochCurlCurl:
         d = lsolve(rhs) * (1.0 / theta)
         x = torch.zeros_like(rhs)
         r = rhs
-        for _ in range(self.cheby_steps() - 1):
+        for _ in range(steps - 1):
             x = x + d
             r = r - self.apply_Lk(d, ph=ph)
             rho_new = rt(1.0) / (rt(2.0 * sigma) - rho)
@@ -601,14 +609,28 @@ class BlochCurlCurl:
             rho = rho_new
         return self.apply_Gk(x + d, ph=ph)
 
-    def make_solve_fn(self) -> Callable:
-        """The field-engine solve (the reference's
-        ``make_solve_fn(deflation="project-cheby", precond="fastdiag")``):
-        LOBPCG on (A(k), M) with the per-iteration X/P projection of the
-        preconditioned-Chebyshev gradient projector and the (A + sM)⁻¹
+    def make_solve_fn(self, deflation: str = "project-cheby",
+                      cheby_target: float | None = None) -> Callable:
+        """The field-engine solve (the reference's ``make_solve_fn`` with
+        ``precond="fastdiag"``): LOBPCG on (A(k), M) with the per-iteration
+        X/P projection of a gradient projector P and the (A + sM)⁻¹
         fast-diagonal preconditioner followed by that projection. A and M
-        come together from the fused Nédélec kernel (the ``AM`` hook). The
-        reference's other deflations and preconditioners are not ported.
+        come together from the fused Nédélec kernel (the ``AM`` hook).
+
+        ``deflation``:
+
+        * "project-cheby" (default, any ε): P by preconditioned Chebyshev
+          on the true L (:meth:`gradient_component_cheby`), ``cheby_steps(
+          cheby_target)`` steps (the production target when None);
+        * "project" (element-invariant ε only): the exact P u =
+          G L⁻¹ Gᴴ M u, L⁻¹ the fast-diagonal solve (one Jacobi eigh of
+          the L blocks per k). With varying ε that solve is only the
+          mean-ε twin, whose error I − L̃⁻¹L has eigenvalues up to the
+          contrast − 1, so per-iteration use would amplify the kernel; it
+          raises ``ValueError`` instead.
+
+        The reference's other deflations and preconditioners are not
+        ported.
 
         Returns ``solve(X0, k, nev, tol, maxiter)`` → (LobpcgResult with
         eigenvector block (m, 3, N₁, N₂, N₃), None)."""
@@ -616,17 +638,38 @@ class BlochCurlCurl:
                                                     engine_scale_floor,
                                                     lobpcg)
 
+        if deflation not in ("project", "project-cheby"):
+            raise ValueError(f"deflation must be 'project' or "
+                             f"'project-cheby' (the ported values), got "
+                             f"{deflation!r}")
+        if deflation == "project" and not self._coef_elem_invariant():
+            raise ValueError(
+                "deflation='project' requires element-translation-"
+                "invariant coefficients (its direct fast-diagonal "
+                "kernel projector is exact only then); use "
+                "deflation='project-cheby' for varying eps — the "
+                "true-L preconditioned-Chebyshev projector contracts "
+                "the kernel at any contrast")
         sfloor = engine_scale_floor(self.dtype)
+        steps = None if cheby_target is None else self.cheby_steps(
+            cheby_target)
         self.fastdiag()       # host stencil extraction (A, M, L), cached
         self.fastdiag_L()
 
         def solve(X0, k, nev, tol, maxiter):
             ph = self.phases(k)
-            lpc = self.fastdiag_L().solver([("L", 1.0)], k, method="eigh")
+            lsolve = self.fastdiag_L().solver([("L", 1.0)], k,
+                                              method="eigh")
             pc = self.fd_precond(k)
 
-            def proj(u):
-                return self.gradient_component_cheby(u, ph=ph, lsolve=lpc)
+            if deflation == "project":
+                def proj(u):
+                    rhs = self.apply_GkH(self.apply_M(u, ph=ph), ph=ph)
+                    return self.apply_Gk(lsolve(rhs), ph=ph)
+            else:
+                def proj(u):
+                    return self.gradient_component_cheby(
+                        u, ph=ph, lsolve=lsolve, steps=steps)
 
             def pcond(R):
                 z = pc(R)
@@ -641,6 +684,71 @@ class BlochCurlCurl:
                           kernel_project=proj, rr_tol=PROD_RR_TOL), None
 
         return solve
+
+    # -- diagonals (k-independent: |phase| = 1) -------------------------------
+
+    def diag_A(self, k=None) -> torch.Tensor:
+        """Real diagonal of A(k) (3, N₁, N₂, N₃) on the device, for the
+        Jacobi preconditioner; the phases have modulus 1, so it does not
+        depend on k."""
+        return torch.as_tensor(self._diagonals()[0], device=self.device)
+
+    @property
+    def diag_M(self) -> np.ndarray:
+        """Real diagonal of M (3, N₁, N₂, N₃), host."""
+        return self._diagonals()[1]
+
+    def _diagonals(self):
+        if not hasattr(self, "_diags"):
+            self._diags = self._build_diagonals()
+        return self._diags
+
+    def _build_diagonals(self):
+        """Per component c: the curl-curl diagonal from the squared
+        tables of its two curl terms, (e_s×e_c)ᵀJᵀJ(e_s'×e_c)/det²J
+        weighted by μ⁻¹w, and the mass diagonal Ginv[c, c]·εw on the
+        squared value tables, scattered to the dofs (the reference's
+        ``_build_diagonals``, in the working precision)."""
+        sp = self.space
+        rd = torch.empty((), dtype=self.rdtype).numpy().dtype
+        wmu = sp.quad_weight() * self._mu_inv_q64
+        weps = sp.quad_weight() * self._eps_q64
+        Bo, Do = sp.open.B, sp.open.D
+        Bc, Dc = sp.closed.B, sp.closed.D
+        J = sp.grid.J
+        JtJ = J.T @ J
+        det2 = np.linalg.det(J) ** 2
+        eye = np.eye(3)
+
+        def scat(r, c):
+            return tensor.scatter_add_np(r, sp.grid.shape, (sp.p,) * 3,
+                                         sp.flags(c))
+
+        diag_A, diag_M = [], []
+        for c in range(3):
+            dcurl = 0.0
+            for s in range(3):
+                for s2 in range(3):
+                    if s == c or s2 == c:
+                        continue
+                    Kss = (np.cross(eye[s], eye[c]) @ JtJ
+                           @ np.cross(eye[s2], eye[c])) / det2
+                    tabs = []
+                    for i in range(3):
+                        if i == c:
+                            a = Do if s == i else Bo
+                            b = Do if s2 == i else Bo
+                        else:
+                            a = Dc if s == i else Bc
+                            b = Dc if s2 == i else Bc
+                        tabs.append(a * b)
+                    dcurl = dcurl + Kss * tensor.contract_t_np(wmu, tabs)
+            diag_A.append(scat(dcurl, c))
+            Gcc = sp.grid.Ginv[c, c]
+            btabs = [(Bo * Bo) if i == c else (Bc * Bc) for i in range(3)]
+            diag_M.append(scat(Gcc * tensor.contract_t_np(weps, btabs), c))
+        return (np.stack(diag_A).real.astype(rd),
+                np.stack(diag_M).real.astype(rd))
 
     # -- host f64 refine ------------------------------------------------------
 

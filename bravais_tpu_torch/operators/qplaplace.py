@@ -12,9 +12,8 @@ caller is the mass stencil of ``BlochHelmholtz.qp_fastdiag``
 (α = 0, shift = 1).
 
 The device apply takes blocks (rows, N₁, ..., N_d); ``apply_A_np`` is the
-f64 host twin (phases at k = 0) the stencil extraction probes. The
-operator diagonal (the reference's Jacobi/GMG smoother input) is not
-ported yet.
+f64 host twin (phases at k = 0) the stencil extraction probes;
+``diag_A``/``diag0`` the operator diagonal (host, k-independent).
 """
 
 from __future__ import annotations
@@ -78,6 +77,25 @@ class QPLaplace:
             return y + self.shift * m
         return apply_global(self.space, u.to(self.dtype), self.consts(), k0,
                             "A", ph)[0]
+
+    def diag_A(self, k=None) -> np.ndarray:
+        """Real diagonal (N₁, ..., N_d), host; |phases| = 1, so it does
+        not depend on k."""
+        return self.diag0
+
+    @property
+    def diag0(self) -> np.ndarray:
+        """diag_S + shift·diag_M of the Bloch operator on the same space
+        and coefficients at k = 0 (its squared-table construction),
+        floored at 1e-30 as the reference floors it."""
+        if not hasattr(self, "_diag"):
+            from bravais_tpu_torch.operators.helmholtz import BlochHelmholtz
+            helm = BlochHelmholtz(self.space, alpha=self._alpha_q64,
+                                  beta=self._beta_q64, dtype=self.dtype,
+                                  device="cpu")
+            self._diag = np.maximum(helm._diag_S + self.shift * helm._diag_M,
+                                    1e-30)
+        return self._diag
 
     def apply_A_np(self, u, k=None):
         """f64 host twin (phases at k = 0, as in the reference; the

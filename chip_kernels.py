@@ -9,11 +9,12 @@ give them, on one NVIDIA GPU, for this checkout's package or another's.
 
 It builds that package's kernels, prints each kernel entry's registers,
 spills and shared memory (``chip_smoke.ptxas_report``), sets up config 3
-(the inputs of the L-twin, h1 and nd calls) and, where the package has
-the scalar Helmholtz operator, config 2 (its h1 shapes and Jacobi
-45×45), prints nd's launch shape and
-resident blocks per SM at its config-3 calls (where the package reports
-them, ``nd_apply.launch_shape``) and prints the card's name and power
+(the inputs of the L-twin, h1 and nd calls), the FCC field path of
+config 4 (n=8 p=4: Jacobi on its 512 × 64×64 L-twin batch, nd at (l, q)
+= (5, 6)) and, where the package has the scalar Helmholtz operator,
+config 2 (its h1 shapes and Jacobi 45×45), prints nd's launch shape and
+resident blocks per SM at its config-3 and FCC calls (where the package
+reports them, ``nd_apply.launch_shape``) and prints the card's name and power
 limit, one line per kernel and shape (``chip_smoke.kernel_times``: the kernel's call
 time between CUDA events and its device time from a ``torch.profiler``
 trace, for Jacobi ``torch.linalg.eigh``'s two times; the plain versions
@@ -65,13 +66,15 @@ def main():
     ptxas = chip_smoke.ptxas_report(cuda_build.build_all())
     dev = torch.device("cuda", 0)
     setup = chip_smoke.dielectric(dev)
-    occupancy = nd_occupancy(dev, setup[2])
+    op4 = chip_smoke.fcc_problem(dev)[2]
+    occupancy = nd_occupancy(dev, setup[2], op4)
     rates = {}
     if args.sweep:
         rates["untraced"] = chip_smoke.phase_dielectric(dev, setup)[1]
     rods = (chip_smoke.rods_setup(dev) if importlib.util.find_spec(
         "bravais_tpu_torch.operators.helmholtz") else None)
-    times = chip_smoke.kernel_times(dev, setup[2], rods, plain=False)
+    times = chip_smoke.kernel_times(dev, setup[2], rods, plain=False,
+                                    op4=op4)
     chip_smoke.log_times(times)
     if args.sweep:
         rates["after_trace"] = chip_smoke.phase_dielectric(dev, setup)[1]
@@ -84,21 +87,24 @@ def main():
     return 0
 
 
-def nd_occupancy(dev, op3):
+def nd_occupancy(dev, op3, op4):
     """{call: launch shape} of nd's config-3 calls (16 rows fused and
-    M-half, 48 rows fused), where the package reports it, else None."""
+    M-half, 48 rows fused) and the FCC field path's (16 rows fused and
+    M-half), where the package reports it, else None."""
     import torch
     from bravais_tpu_torch.operators import nd_apply
     if not hasattr(nd_apply, "launch_shape"):
         return None
-    c = op3.nd_consts()
     out = {}
-    for rows, want in ((16, "AM"), (16, "M"), (48, "AM")):
+    for tag, op, rows, want in (("", op3, 16, "AM"), ("", op3, 16, "M"),
+                                ("", op3, 48, "AM"), ("fcc ", op4, 16, "AM"),
+                                ("fcc ", op4, 16, "M")):
+        c = op.nd_consts()
         ue = torch.zeros((rows * c.nelem, c.ndof), dtype=torch.complex64,
                          device=dev)
-        out[f"rows {rows} {want}"] = shape = nd_apply.launch_shape(
+        out[f"{tag}rows {rows} {want}"] = shape = nd_apply.launch_shape(
             ue, c, want)
-        chip_smoke.log("occupancy", f"nd rows {rows} {want}: "
+        chip_smoke.log("occupancy", f"nd {tag}rows {rows} {want}: "
                        f"{shape['rows_per_block']} element-rows "
                        f"({shape['threads']} threads, {shape['smem_bytes']} "
                        f"B shared) per block, {shape['blocks_per_sm']} "

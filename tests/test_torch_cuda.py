@@ -64,7 +64,7 @@ def _rand_herm(n, seed):
 
 
 @pytest.mark.parametrize("n,batch", [(16, 1), (33, 8), (48, 1), (48, 8),
-                                     (64, 1)])
+                                     (64, 1), (64, 512)])
 def test_kernel_matches_plain(cuda, n, batch):
     Hs = np.stack([_rand_herm(n, 7 * n + i) for i in range(batch)])
     H = torch.as_tensor(Hs.astype(np.complex64), device=cuda)
@@ -109,7 +109,9 @@ def test_kernel_order_and_sweeps_match_plain(cuda, n, batch):
 
 def test_kernel_is_one_device_operation(cuda):
     """``jacobi_eigh_cuda`` issues the kernel and nothing else on the
-    device (no pad, sort or gather), at odd and even n."""
+    device (no pad, sort or gather), at odd and even n. Now and then a
+    process's profiler trace holds no device operation at all, though the
+    call issues one: such a trace is taken again, at most three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for n, batch in ((27, 216), (48, 1)):
@@ -117,12 +119,15 @@ def test_kernel_is_one_device_operation(cuda):
                             .astype(np.complex64), device=cuda)
         jacobi_eigh(H)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            jacobi_eigh(H, rel_tol=1e-4)
-            torch.cuda.synchronize()
-        dev = [e.name for e in prof.events()
-               if e.device_type == DeviceType.CUDA]
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                jacobi_eigh(H, rel_tol=1e-4)
+                torch.cuda.synchronize()
+            dev = [e.name for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+            if dev:
+                break
         assert len(dev) == 1 and "jacobi_eigh_kernel" in dev[0], dev
 
 
@@ -186,12 +191,13 @@ def test_sweep_on_cuda_matches_cpu(cuda):
 
 
 @pytest.mark.parametrize("n,p,rows", [(3, 2, 3), (6, 3, 16), (3, 1, 7),
-                                      (2, 4, 5)])
+                                      (2, 4, 5), (8, 4, 16)])
 def test_nd_kernel_matches_plain(cuda, n, p, rows):
     """Every half of the Nédélec kernel against the plain version, at the
-    instantiated shapes (p = 2, 3) and with runtime extents (p = 1, 4),
-    odd row counts among them; one launch per call, and its block fits on
-    an SM."""
+    instantiated shapes (p = 2, 3, 4; p = 4 on 16 rows of 512 elements is
+    the FCC field path's call) and with runtime extents (p = 1), odd row
+    counts among them; one launch per call, and its block fits on an
+    SM."""
     c = _sphere_op(n, p, cuda).nd_consts()
     gen = torch.Generator(device=cuda).manual_seed(3)
     ue = torch.randn((rows * c.nelem, c.ndof), generator=gen,
@@ -411,3 +417,24 @@ def test_rods_gmg_sweep_on_cuda_matches_cpu(cuda):
     np.testing.assert_allclose(r_gpu.eigenvalues, r_cpu.eigenvalues,
                                rtol=1e-6, atol=1e-9)
     assert np.max(r_gpu.residuals) < 1e-3
+
+
+def test_cli_on_cuda(cuda, tmp_path):
+    """``python -m bravais_tpu_torch --device cuda`` on a small TM-rods
+    problem (matrix-free, GMG) runs on the card and exits 0."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+    repo = Path(__file__).resolve().parents[1]
+    r = subprocess.run(
+        [sys.executable, "-m", "bravais_tpu_torch", "--device", "cuda",
+         "--lattice", "SQR", "--problem", "tm", "--eps-in", "8.9",
+         "--radius", "0.2", "--n", "8", "--p", "2", "--nk", "4", "--nev",
+         "4", "--out", str(tmp_path)], cwd=repo, capture_output=True,
+        text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "f32 on cuda" in r.stdout.splitlines()[0]
+    rows = [json.loads(x) for x in r.stdout.splitlines() if x.startswith("{")]
+    assert [x["k_index"] for x in rows] == [0, 1, 2, 3]
+    assert all(np.all(np.isfinite(x["eigenvalues"])) for x in rows)
