@@ -19,15 +19,22 @@ Jacobi or geometric-multigrid preconditioner. The refine:
 
 ``run_warm`` starts each k from the previous k's eigenvector block (which
 stays on the device); ``run`` starts every k from the seeded start block.
-With a ``writer`` (``bands.io.BandWriter``) each finished k (``run_warm``)
-or chunk (``run``) is on disk at once, so a killed sweep resumes where it
-stopped.
+``run`` solves a chunk of k-points as ONE k-batched solve (a LOBPCG with
+a leading k axis, as the reference vmaps a chunk) where the solve
+supports it: an engine ``solve_fn`` with ``batched = True`` (the scalar
+spectral engine, ``BlochHelmholtz.make_solve_fn``), and the built-in
+solve on a ``BlochHelmholtz`` with the Jacobi preconditioner or none.
+Every other solve (the Maxwell spectral and field engines, the built-in
+solve with geometric multigrid or on a ``BlochCurlCurl``) loops over the
+chunk's k-points one after the other. Each k of a chunk is then refined
+on the host. With a ``writer`` (``bands.io.BandWriter``) each finished k
+(``run_warm``) or chunk (``run``) is on disk at once, so a killed sweep
+resumes where it stopped.
 
-The reference overlaps the host refine of k with the device solve of
-k+1, and its ``run`` solves a chunk's k-points as one vmapped program;
-this host-driven loop runs them one after the other (a LOBPCG with a
-leading k axis is later work). The chain/segment modes, the sharded
-sweeps and the near-Γ loose stop are not ported.
+The reference overlaps the host refine of k (or of a chunk) with the
+device solve of the next; this host-driven loop runs them one after the
+other. The chain/segment modes, the sharded sweeps and the near-Γ loose
+stop are not ported.
 """
 
 from __future__ import annotations
@@ -109,6 +116,7 @@ class BandSweep:
         self.op = operator
         self.seed = seed
         self.keep_vectors = keep_vectors
+        self.builtin = solve_fn is None
         self.solve_fn = solve_fn if solve_fn is not None else self._solve
         self.nev = nev
         self.m = block if block is not None else nev + max(4, nev // 2)
@@ -166,6 +174,32 @@ class BandSweep:
                       AM=lambda x: op.apply_AM(x, k),
                       rr_tol=PROD_RR_TOL), None
 
+    def _batched_solve(self) -> Optional[Callable]:
+        """The solve ``run`` gives a whole chunk of k at once, or None
+        where it loops over k: a ``solve_fn`` with ``batched = True``, or
+        the built-in solve on a ``BlochHelmholtz`` with Jacobi or no
+        preconditioner."""
+        if getattr(self.solve_fn, "batched", False):
+            return self.solve_fn
+        from bravais_tpu_torch.operators.helmholtz import BlochHelmholtz
+        if (self.builtin and isinstance(self.op, BlochHelmholtz)
+                and self.precond_mode in ("jacobi", None)):
+            return self._solve_batched
+        return None
+
+    def _solve_batched(self, X0, ks, nev, tol, maxiter):
+        """The built-in solve of a k table ks (nk, d) as one k-batched
+        LOBPCG from the start block X0 (m, *N), shared by every k; the
+        Jacobi preconditioner takes one diagonal per k."""
+        op = self.op
+        pre = (jacobi(op.diag_A(ks), batched=True)
+               if self.precond_mode == "jacobi" else None)
+        return lobpcg(lambda x: op.apply_A(x, ks), op.apply_M,
+                      X0.expand((len(ks),) + tuple(X0.shape)), nev,
+                      maxiter=maxiter, tol=tol, precond=pre,
+                      AM=lambda x: op.apply_AM(x, ks), rr_tol=PROD_RR_TOL,
+                      batched=True), None
+
     def _x0(self) -> torch.Tensor:
         """Start block from ``np.random.default_rng(seed)``, drawn as the
         reference draws it (real and imaginary planes)."""
@@ -203,21 +237,30 @@ class BandSweep:
                                       self.nev, rows=X.shape[0])
         return lam, res, True
 
+    def _refined(self, r, support, X, k, j=None):
+        """One k's row of the result from a solve's output ``r`` (and its
+        block ``support``; index ``j`` into a k-batched one): (eigenvalues,
+        iterations, residuals, seconds in the refine, fell back)."""
+        pick = (lambda t: t) if j is None else (lambda t: t[j])
+        lam = pick(r.eigenvalues).double().cpu().numpy()
+        res = pick(r.residual_norms).double().cpu().numpy()
+        its = int(pick(r.iterations))
+        dt, fell = 0.0, False
+        if self.refine:
+            sup = (pick(support).double().cpu().numpy()
+                   if support is not None else None)
+            t1 = time.perf_counter()
+            lam, res, fell = self._refine_host(lam, sup, X, k)
+            dt = time.perf_counter() - t1
+        return lam, its, res, dt, fell
+
     def _solve_refined(self, X, k):
         """Solve at k from the block ``X`` and refine; returns (eigenvalues,
         iterations, residuals, seconds in the refine, fell back, the
         solve's eigenvector block on the device)."""
         r, support = self.solve_fn(X, k, self.nev, self.tol, self.maxiter)
-        lam = r.eigenvalues.double().cpu().numpy()
-        res = r.residual_norms.double().cpu().numpy()
-        dt, fell = 0.0, False
-        if self.refine:
-            sup = (support.double().cpu().numpy()
-                   if support is not None else None)
-            t1 = time.perf_counter()
-            lam, res, fell = self._refine_host(lam, sup, r.eigenvectors, k)
-            dt = time.perf_counter() - t1
-        return lam, r.iterations, res, dt, fell, r.eigenvectors
+        return (*self._refined(r, support, r.eigenvectors, k),
+                r.eigenvectors)
 
     def _rounded(self, k_cart) -> np.ndarray:
         """The k-points rounded to the device's real precision, as the
@@ -260,25 +303,34 @@ class BandSweep:
             writer=None, k_index: Optional[np.ndarray] = None
             ) -> SweepResult:
         """Cold sweep: every k solved from the seeded start block, in
-        chunks of ``chunk`` k-points (default all). With ``writer``, each
-        finished chunk is written at once under the global indices
-        ``k_index`` (default 0..nk-1). The reference solves a chunk as
-        one vmapped program; here the k-points of a chunk run one after
-        the other (a LOBPCG with a leading k axis is later work), so
-        ``chunk`` sets only how often the writer is called."""
+        chunks of ``chunk`` k-points (default all). A chunk is one
+        k-batched solve where the solve supports it (module docstring),
+        else its k-points run one after the other; each k is then
+        refined on the host. With ``writer``, each finished chunk is
+        written at once under the global indices ``k_index`` (default
+        0..nk-1)."""
         k_cart = self._rounded(k_cart)
         nk = len(k_cart)
         chunk = chunk or nk
         X0 = self._x0()
+        bsolve = self._batched_solve()
         rows, vecs = [], [] if self.keep_vectors else None
         t0 = time.perf_counter()
         for s in range(0, nk, chunk):
-            part = []
-            for k in k_cart[s:s + chunk]:
-                *row, X = self._solve_refined(X0, k)
-                part.append(row)
+            ks = k_cart[s:s + chunk]
+            if bsolve is not None:
+                r, support = bsolve(X0, ks, self.nev, self.tol, self.maxiter)
+                part = [self._refined(r, support, r.eigenvectors[j], k, j)
+                        for j, k in enumerate(ks)]
                 if vecs is not None:
-                    vecs.append(X[:self.nev].cpu().numpy())
+                    vecs.extend(r.eigenvectors[:, :self.nev].cpu().numpy())
+            else:
+                part = []
+                for k in ks:
+                    *row, X = self._solve_refined(X0, k)
+                    part.append(row)
+                    if vecs is not None:
+                        vecs.append(X[:self.nev].cpu().numpy())
             rows.extend(part)
             if writer is not None:
                 gidx = (k_index[s:s + len(part)] if k_index is not None

@@ -6,9 +6,10 @@
 
 Wires config -> lattice -> mesh -> operator -> k-sweep -> band table
 (+ checkpoint/resume, one JSON line per k, optional plot and mode
-dumps). Runs on the CUDA device unless ``--device cpu`` (or
-``--precision f64``, which runs on the host) is given; without a card it
-exits with an error instead of falling back to the CPU. What the port
+dumps). Runs on the CUDA device unless ``--device cpu`` is given;
+without a card it exits with an error instead of falling back to the
+CPU. ``--precision f64`` runs only on the CPU and needs ``--device cpu``
+(the entry point never picks the CPU by itself). What the port
 lacks exits with an error that names it: the ``gmg`` Maxwell engine
 (and ``auto`` on a grid with n < 3), which needs the reference's QPGMG;
 ``--mode warm-chain``; ``--shard``.
@@ -28,19 +29,19 @@ class Unsupported(ValueError):
 
 
 def resolve_device(cfg) -> str:
-    """The torch device of a run: ``cfg.device``, or "cuda" — "cpu" under
-    ``precision="f64"``, which the card does not run. Raises
-    ``Unsupported`` for an f64 run on the card, an unknown device, and a
-    CUDA run without a card."""
+    """The torch device of a run: ``cfg.device``, default "cuda". Raises
+    ``Unsupported`` for ``precision="f64"`` on any device but the CPU
+    (the card does not run it, and an unasked CPU run is refused too), an
+    unknown device, and a CUDA run without a card."""
     import torch
     if cfg.precision not in ("f32", "f64"):
         raise Unsupported(f"unknown precision {cfg.precision!r}")
-    dev = cfg.device or ("cpu" if cfg.precision == "f64" else "cuda")
+    dev = cfg.device or "cuda"
     if dev not in ("cuda", "cpu"):
         raise Unsupported(f"--device must be 'cuda' or 'cpu', got {dev!r}")
-    if dev == "cuda" and cfg.precision == "f64":
-        raise Unsupported("--precision f64 runs on the CPU: drop "
-                          "--device cuda or pass --device cpu")
+    if dev != "cpu" and cfg.precision == "f64":
+        raise Unsupported("--precision f64 runs on the CPU: pass --device "
+                          "cpu")
     if dev == "cuda" and not torch.cuda.is_available():
         raise Unsupported("no CUDA device: pass --device cpu to run on the "
                           "CPU")
@@ -164,10 +165,8 @@ def run(cfg, log=print):
     check_modes(cfg)
     t0 = time.perf_counter()
     lat, kp, op = build_problem(cfg, device)
-    note = " (f64 runs on the CPU)" if cfg.precision == "f64" else ""
     log(f"# {lat.variant}: {op.space.ndofs} dofs, {kp.nk} k-points, "
-        f"nev={cfg.nev}, tol={cfg.tol:g}, {cfg.precision} on "
-        f"{device}{note}")
+        f"nev={cfg.nev}, tol={cfg.tol:g}, {cfg.precision} on {device}")
 
     sweep = BandSweep(op, make_solve_fn(cfg, op), nev=cfg.nev,
                       block=cfg.block, tol=cfg.tol, maxiter=cfg.maxiter,

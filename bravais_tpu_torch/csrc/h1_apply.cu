@@ -18,7 +18,10 @@
 // Layout (element-major): element-row b = row * nelem + element reads its
 // l^d complex values contiguously from u[b]; alpha.w, beta.w are
 // (nelem, q^d) float32 with the quadrature weights folded in. The tables
-// B, D, the metric Jinv^T, Jinv and k are kernel parameters.
+// B, D, the metric Jinv^T, Jinv and a table of up to kMaxK k-points are
+// kernel parameters: rows come in groups of rows_per_k, one k each (a
+// k-batched solve), so element-row b uses k[(b / nelem) / rows_per_k].
+// The ik contractions are skipped only when every k of the table is 0.
 //
 // What bounds it on an H100: at config-3 shapes (d = 3, p = 3: l = 4,
 // q = 5) a 16-row k = 0 "A" call reads and writes 1.8 MB each (about 1 us
@@ -56,21 +59,27 @@ using bt::kMaxQ;
 using bt::trn;
 
 constexpr int kMaxWarps = 4;
+// k-points of one launch (768 bytes of kernel parameters, no copy to the
+// device per launch); the wrapper splits a larger batch into launches.
+constexpr int kMaxK = 64;
 
+// KT: the k-table's length, 1 (one k: the parameters and code of a
+// single-k apply) or kMaxK.
+template <int KT>
 struct H1Params {
   float B[kMaxQ * kMaxL], D[kMaxQ * kMaxL];  // (q, l) row-major, zero-padded
   float JinvT[9], Jinv[9];                   // row-major, leading d x d of 3 x 3
-  float k[3];
-  int q, l, nelem, nblocks, want, kz;
+  float k[KT][3];                            // one k per group of rows_per_k rows
+  int q, l, nelem, nblocks, want, kz, rows_per_k;
   int xsize, ysize;  // float2 slots of the warp's two buffers
 };
 
 // DIM = 2 or 3; LL, QQ the extents, or 0 for runtime extents.
-template <int DIM, int LL, int QQ>
+template <int DIM, int LL, int QQ, int KT>
 __global__ void __launch_bounds__(32 * kMaxWarps)
 h1_apply_kernel(const float2* __restrict__ u, const float* __restrict__ aw,
                 const float* __restrict__ bw, float2* __restrict__ y,
-                float2* __restrict__ m, const H1Params P) {
+                float2* __restrict__ m, const H1Params<KT> P) {
   constexpr int LM = LL ? LL : kMaxL, QM = QQ ? QQ : kMaxQ;
   const int l = LL ? LL : P.l, q = QQ ? QQ : P.q;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -146,7 +155,9 @@ h1_apply_kernel(const float2* __restrict__ u, const float* __restrict__ aw,
   __syncwarp();
 
   // Pointwise, in place: h_r = (Jinv f)_r into g_r, s = -i k.f into the S
-  // plane, beta.w uq into the M plane.
+  // plane, beta.w uq into the M plane; k of this element-row's group.
+  const int ik = KT == 1 ? 0 : (blk / P.nelem) / P.rows_per_k;
+  const float kv[3] = {P.k[ik][0], P.k[ik][1], P.k[ik][2]};
   for (int x = lane; x < qd; x += 32) {
     const float2 uq = need_uq ? X[pU * qd + x] : make_float2(0.0f, 0.0f);
     if (wantA) {
@@ -163,9 +174,9 @@ h1_apply_kernel(const float2* __restrict__ u, const float* __restrict__ aw,
           gr = fmaf(P.JinvT[r * 3 + s], gv[s].x, gr);
           gi = fmaf(P.JinvT[r * 3 + s], gv[s].y, gi);
         }
-        f[r] = make_float2(a * (gr - P.k[r] * uq.y), a * (gi + P.k[r] * uq.x));
-        sr = fmaf(P.k[r], f[r].y, sr);
-        si = fmaf(-P.k[r], f[r].x, si);
+        f[r] = make_float2(a * (gr - kv[r] * uq.y), a * (gi + kv[r] * uq.x));
+        sr = fmaf(kv[r], f[r].y, sr);
+        si = fmaf(-kv[r], f[r].x, si);
       }
 #pragma unroll
       for (int r = 0; r < DIM; ++r) {
@@ -257,31 +268,20 @@ void buffer_sizes(int d, int l, int q, bool wantA, bool wantM, bool kz, int* xs,
   *ys = (yv + 1) & ~1;
 }
 
-template <int DIM, int LL, int QQ>
+template <int DIM, int LL, int QQ, int KT>
 cudaError_t launch(const float2* u, const float* aw, const float* bw, float2* y,
-                   float2* m, const H1Params& P, int warps, cudaStream_t stream) {
+                   float2* m, const H1Params<KT>& P, int warps, cudaStream_t stream) {
   const size_t smem = (size_t)warps * (P.xsize + P.ysize) * sizeof(float2);
   const int grid = (P.nblocks + warps - 1) / warps;
-  h1_apply_kernel<DIM, LL, QQ><<<grid, 32 * warps, smem, stream>>>(u, aw, bw, y, m, P);
+  h1_apply_kernel<DIM, LL, QQ, KT><<<grid, 32 * warps, smem, stream>>>(u, aw, bw, y, m, P);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// u, y, m: (nblocks, l^d) complex64; aw, bw: (nelem, q^d) float32 (alpha,
-// beta times the quadrature weights); nblocks = rows * nelem. tabs: host
-// (2, q, l) float32 (B, D); metric: host JinvT (9), Jinv (9), k (3), the
-// d x d blocks leading. want: 1 = y, 2 = m, 3 = both (y or m may be null
-// when not wanted). Returns the cudaError_t of the launch (0 on success).
-extern "C" int h1_apply_launch(const void* u, const void* aw, const void* bw,
-                               void* y, void* m, const float* tabs,
-                               const float* metric, int q, int l, int d,
-                               int nelem, int nblocks, int want, void* stream) {
-  if (q < 1 || q > kMaxQ || l < 1 || l > kMaxL || d < 2 || d > 3 ||
-      nelem < 1 || nblocks < 1 || nblocks % nelem != 0 || want < 1 ||
-      want > 3 || ((want & 1) && y == nullptr) || ((want & 2) && m == nullptr))
-    return (int)cudaErrorInvalidValue;
-  H1Params P = {};
+template <int KT>
+int run(const void* u, const void* aw, const void* bw, void* y, void* m,
+        const float* tabs, const float* metric, const float* ktab, int nk, int q,
+        int l, int d, int nelem, int nblocks, int want, void* stream) {
+  H1Params<KT> P = {};
   for (int i = 0; i < q * l; ++i) {
     P.B[i] = tabs[i];
     P.D[i] = tabs[q * l + i];
@@ -290,13 +290,18 @@ extern "C" int h1_apply_launch(const void* u, const void* aw, const void* bw,
     P.JinvT[i] = metric[i];
     P.Jinv[i] = metric[9 + i];
   }
-  for (int i = 0; i < 3; ++i) P.k[i] = metric[18 + i];
+  P.kz = 1;
+  for (int j = 0; j < nk; ++j)
+    for (int i = 0; i < 3; ++i) {
+      P.k[j][i] = ktab[3 * j + i];
+      P.kz = P.kz && P.k[j][i] == 0.0f;
+    }
   P.q = q;
   P.l = l;
   P.nelem = nelem;
   P.nblocks = nblocks;
   P.want = want;
-  P.kz = P.k[0] == 0.0f && P.k[1] == 0.0f && P.k[2] == 0.0f;
+  P.rows_per_k = nblocks / nelem / nk;
   buffer_sizes(d, l, q, want & 1, want & 2, P.kz, &P.xsize, &P.ysize);
   // Element-rows per block: up to kMaxWarps within the 48 KB a block
   // gets without an opt-in.
@@ -310,22 +315,47 @@ extern "C" int h1_apply_launch(const void* u, const void* aw, const void* bw,
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   // The repository's shapes: config 3 and QPLaplace at p = 3 (3, 4, 5),
-  // the FCC field engine at p = 4 (3, 5, 6), the 2D rods at p = 3
-  // (2, 4, 5), the 2D scalar headline at p = 4 (2, 5, 6) and the 2D
+  // the FCC field engine and config 5 at p = 4 (3, 5, 6), the 2D rods at
+  // p = 3 (2, 4, 5), the 2D scalar headline at p = 4 (2, 5, 6) and the 2D
   // multigrid's p = 1 levels (2, 2, 3).
   if (d == 3 && l == 4 && q == 5)
-    err = launch<3, 4, 5>(uu, a, b, yy, mm, P, warps, s);
+    err = launch<3, 4, 5, KT>(uu, a, b, yy, mm, P, warps, s);
   else if (d == 3 && l == 5 && q == 6)
-    err = launch<3, 5, 6>(uu, a, b, yy, mm, P, warps, s);
+    err = launch<3, 5, 6, KT>(uu, a, b, yy, mm, P, warps, s);
   else if (d == 2 && l == 4 && q == 5)
-    err = launch<2, 4, 5>(uu, a, b, yy, mm, P, warps, s);
+    err = launch<2, 4, 5, KT>(uu, a, b, yy, mm, P, warps, s);
   else if (d == 2 && l == 5 && q == 6)
-    err = launch<2, 5, 6>(uu, a, b, yy, mm, P, warps, s);
+    err = launch<2, 5, 6, KT>(uu, a, b, yy, mm, P, warps, s);
   else if (d == 2 && l == 2 && q == 3)
-    err = launch<2, 2, 3>(uu, a, b, yy, mm, P, warps, s);
+    err = launch<2, 2, 3, KT>(uu, a, b, yy, mm, P, warps, s);
   else if (d == 3)
-    err = launch<3, 0, 0>(uu, a, b, yy, mm, P, warps, s);
+    err = launch<3, 0, 0, KT>(uu, a, b, yy, mm, P, warps, s);
   else
-    err = launch<2, 0, 0>(uu, a, b, yy, mm, P, warps, s);
+    err = launch<2, 0, 0, KT>(uu, a, b, yy, mm, P, warps, s);
   return (int)err;
+}
+
+}  // namespace
+
+// u, y, m: (nblocks, l^d) complex64; aw, bw: (nelem, q^d) float32 (alpha,
+// beta times the quadrature weights); nblocks = nk * rows_per_k * nelem.
+// tabs: host (2, q, l) float32 (B, D); metric: host JinvT (9), Jinv (9),
+// the d x d blocks leading; ktab: host (nk, 3) float32, 1 <= nk <= kMaxK,
+// the k of each group of rows_per_k rows (one k: the single-k kernel).
+// want: 1 = y, 2 = m, 3 = both (y or m may be null when not wanted).
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int h1_apply_launch(const void* u, const void* aw, const void* bw,
+                               void* y, void* m, const float* tabs,
+                               const float* metric, const float* ktab, int nk,
+                               int q, int l, int d, int nelem, int nblocks,
+                               int want, void* stream) {
+  if (q < 1 || q > kMaxQ || l < 1 || l > kMaxL || d < 2 || d > 3 ||
+      nelem < 1 || nblocks < 1 || nblocks % nelem != 0 || want < 1 ||
+      want > 3 || ((want & 1) && y == nullptr) || ((want & 2) && m == nullptr) ||
+      nk < 1 || nk > kMaxK || (nblocks / nelem) % nk != 0)
+    return (int)cudaErrorInvalidValue;
+  return nk == 1 ? run<1>(u, aw, bw, y, m, tabs, metric, ktab, nk, q, l, d, nelem,
+                          nblocks, want, stream)
+                 : run<kMaxK>(u, aw, bw, y, m, tabs, metric, ktab, nk, q, l, d,
+                              nelem, nblocks, want, stream);
 }

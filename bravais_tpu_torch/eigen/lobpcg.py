@@ -13,17 +13,28 @@ The reference's ``lax.while_loop`` is a Python loop here. Every tensor
 keeps its shape across iterations, so a later change can capture one
 segment in a CUDA graph.
 
-Conventions: block arrays are (m, N) with each ROW a vector;
-⟨x, y⟩ = conj(x)·y; Gram G[i, j] = ⟨s_i, Op s_j⟩ = conj(S) @ (Op S).T.
-The operators ``A(X)``, ``M(X)``, ``AM(X)`` (the fused pair),
+A leading k axis (``batched=True``) solves nk pencils at once, with the
+semantics of ``jax.vmap`` over the reference's nested loops: every
+per-row quantity (Ritz values, residuals, locks, whitening, the (nk, 3m,
+3m) Rayleigh–Ritz, ``done``, the stops) is per k and reduces over that
+k's rows only; the active k-points step in lockstep (they share the
+iteration count and the segment boundaries); a k that is done keeps its
+state unchanged (``torch.where`` on an (nk,) mask) while the others go
+on. The loop reads the (nk,) done flags from the host once per
+iteration. The unbatched call is the same code with no leading axis.
+
+Conventions: block arrays are (m, N) with each ROW a vector ((nk, m, N)
+batched); ⟨x, y⟩ = conj(x)·y; Gram G[i, j] = ⟨s_i, Op s_j⟩ = conj(S) @
+(Op S)ᵀ. The operators ``A(X)``, ``M(X)``, ``AM(X)`` (the fused pair),
 ``precond(R)`` and ``kernel_project(X)`` act on whole blocks
-(rows, *dof_shape).
+(rows, *dof_shape), or (nk, rows, *dof_shape) batched.
 """
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from bravais_tpu_torch.eigen.jacobi_eigh import jacobi_eigh
@@ -47,9 +58,11 @@ RESEED = 0x5EED
 
 
 class LobpcgResult(NamedTuple):
+    """Batched (``batched=True``): every field gains a leading k axis and
+    ``iterations`` is an (nk,) int64 numpy array."""
     eigenvalues: torch.Tensor    # (nev,) real, ascending
     eigenvectors: torch.Tensor   # (m, *dof_shape): first nev rows converged
-    iterations: int
+    iterations: "int | np.ndarray"
     residual_norms: torch.Tensor  # (nev,) relative residual norms at exit
     converged: torch.Tensor      # (nev,) bool
 
@@ -60,19 +73,21 @@ def _hermitize(G):
 
 def _whiten(G, eps):
     """C with CᴴGC ≈ I on the well-conditioned subspace of the
-    Hermitian PSD Gram G, dropping directions with eigenvalue below
-    ``eps * max``. Dropped directions become zero columns; returns
-    (C, good_mask)."""
+    Hermitian PSD Gram G (..., n, n), dropping directions with eigenvalue
+    below ``eps * max`` (per matrix). Dropped directions become zero
+    columns; returns (C, good_mask)."""
     w, V = jacobi_eigh(_hermitize(G))
-    wmax = torch.clamp(w.abs().max(), min=torch.finfo(w.dtype).tiny)
+    wmax = torch.clamp(w.abs().amax(-1, keepdim=True),
+                       min=torch.finfo(w.dtype).tiny)
     good = w > eps * wmax
     inv = torch.where(good, torch.rsqrt(torch.where(good, w, 1.0)), 0.0)
-    return V * inv[None, :].to(V.dtype), good
+    return V * inv[..., None, :].to(V.dtype), good
 
 
 def _chol_rows(G, big):
-    """Cholesky factor of G with failed rows rebuilt as huge decoupled
-    diagonals; returns (L, ok_rows).
+    """Cholesky factor of G (..., n, n) with failed rows rebuilt as huge
+    decoupled diagonals (``big`` (..., 1) per matrix); returns (L,
+    ok_rows).
 
     ``torch.linalg.cholesky_ex`` reports the first failing leading minor
     in ``info`` (rows info-1 onward are untrustworthy) where the
@@ -81,52 +96,54 @@ def _chol_rows(G, big):
     L, info = torch.linalg.cholesky_ex(G)
     n = G.shape[-1]
     rows = torch.arange(n, device=G.device)
+    info = info[..., None]
     ok = ~((info > 0) & (rows >= info - 1))
     ok = ok & torch.isfinite(torch.view_as_real(L)).all(dim=-1).all(dim=-1)
-    L = torch.where(ok[:, None], L, 0.0)
-    L = L + torch.diag((~ok).to(big.dtype) * big).to(G.dtype)
+    L = torch.where(ok[..., None], L, 0.0)
+    L = L + torch.diag_embed((~ok).to(big.dtype) * big).to(G.dtype)
     return L, ok
 
 
 def _whiten_chol(G, eps):
     """Cholesky-based whitening — same contract as :func:`_whiten`.
 
-    δ-regularized chol(G + δI), δ = 20·eps·max(diag): directions with
-    Gram eigenvalue ≤ δ come out damped and are flagged by the whitened
-    M-norm diag(CᴴGC) = 1 − δ‖C[:, i]‖² < 1/2, then a second
-    (CholeskyQR2) pass re-measures the whitened Gram from the ORIGINAL G
-    so amplified noise directions drop out (see the reference docstring
-    for the measured failures each step prevents)."""
+    δ-regularized chol(G + δI), δ = 20·eps·max(diag) per matrix:
+    directions with Gram eigenvalue ≤ δ come out damped and are flagged
+    by the whitened M-norm diag(CᴴGC) = 1 − δ‖C[:, i]‖² < 1/2, then a
+    second (CholeskyQR2) pass re-measures the whitened Gram from the
+    ORIGINAL G so amplified noise directions drop out (see the reference
+    docstring for the measured failures each step prevents)."""
     G = _hermitize(G)
     rdtype = G.real.dtype
     n = G.shape[-1]
     fi = torch.finfo(rdtype)
-    dmax = torch.clamp(torch.diagonal(G).real.max(), min=fi.tiny)
+    dmax = torch.clamp(torch.diagonal(G, dim1=-2, dim2=-1).real
+                       .amax(-1, keepdim=True), min=fi.tiny)   # (..., 1)
     delta = 20.0 * eps * dmax
-    eye = torch.eye(n, dtype=G.dtype, device=G.device)
+    eye = torch.eye(n, dtype=G.dtype, device=G.device).expand(G.shape)
     big = dmax / fi.eps
-    L, fin = _chol_rows(G + delta * eye, big)
+    L, fin = _chol_rows(G + delta[..., None] * eye, big)
     Cm = torch.linalg.solve_triangular(L, eye, upper=False)   # L⁻¹
-    mnorm = 1.0 - delta * (Cm.abs() ** 2).sum(dim=1)
+    mnorm = 1.0 - delta * (Cm.abs() ** 2).sum(dim=-1)
     good = (mnorm > 0.5) & fin
     # Dropped directions become ZERO columns (their 1/√δ-scaled entries
     # would otherwise swamp H and cost the Jacobi RR its small values).
-    Cm = Cm * good[:, None].to(Cm.dtype)
+    Cm = Cm * good[..., None].to(Cm.dtype)
     G2 = Cm @ G @ Cm.mH
-    d2 = torch.diagonal(G2).real
+    d2 = torch.diagonal(G2, dim1=-2, dim2=-1).real
     good = good & (d2 > 0.5)
     gm = good.to(rdtype)
-    G2 = (G2 * (gm[:, None] * gm[None, :]).to(G2.dtype)
-          + torch.diag(1.0 - gm).to(G2.dtype))
+    G2 = (G2 * (gm[..., :, None] * gm[..., None, :]).to(G2.dtype)
+          + torch.diag_embed(1.0 - gm).to(G2.dtype))
     L2, fin2 = _chol_rows(_hermitize(G2), big)
     good = good & fin2
     Cm2 = torch.linalg.solve_triangular(L2, eye, upper=False) @ Cm
-    Cm2 = Cm2 * good[:, None].to(Cm2.dtype)
+    Cm2 = Cm2 * good[..., None].to(Cm2.dtype)
     return Cm2.mH, good
 
 
 def _gram(U, V):
-    return U.conj() @ V.T
+    return U.conj() @ V.mT
 
 
 def lobpcg(A: Callable, M: Optional[Callable], X0: torch.Tensor, nev: int,
@@ -136,23 +153,31 @@ def lobpcg(A: Callable, M: Optional[Callable], X0: torch.Tensor, nev: int,
            scale_floor: float = 3e-2,
            kernel_project: Optional[Callable] = None,
            rr_tol: Optional[float] = None,
-           generator: Optional[torch.Generator] = None) -> LobpcgResult:
+           generator: Optional[torch.Generator] = None,
+           batched: bool = False) -> LobpcgResult:
     """LOBPCG on the Hermitian pencil (A, M) — see module docstring.
 
-    ``X0``: (m, *dof_shape) complex start block, m >= nev; ``M=None`` is
+    ``X0``: (m, *dof_shape) complex start block, m >= nev; with
+    ``batched``, (nk, m, *dof_shape), one pencil per k (a start block
+    shared by all k: ``X0.expand(nk, *X0.shape)``), and every operator
+    takes and returns (nk, rows, *dof_shape) blocks. ``M=None`` is
     the identity mass. ``AM(X)`` returns (A X, M X) in one call (e.g. the
     fused Nédélec element kernel); it serves every place that needs
     both, and separate ``A``/``M`` calls serve the rest. Relative residual ‖Ax − λMx‖ / scale with
-    scale = max(|λ_j|, ``scale_floor``·max|λ|, 1e-3).
+    scale = max(|λ_j|, ``scale_floor``·max|λ|, 1e-3) (max over the k's
+    own rows).
     ``kernel_project(X)`` returns the kernel component of each row; it
     is subtracted from the updated X and P every iteration.
     ``rr_tol``: looser Rutishauser stop for the Rayleigh–Ritz eigh (None
     keeps machine precision). ``generator``: source of the noise that
     reseeds zero rows of ``X0`` (default: seeded with ``RESEED`` on
-    X0's device).
+    X0's device; every k draws the same noise, as under the reference's
+    vmap).
     """
-    dof_shape = tuple(X0.shape[1:])
-    m = X0.shape[0]
+    lead = tuple(X0.shape[:1]) if batched else ()
+    nk = X0.shape[0] if batched else 1
+    m = X0.shape[len(lead)]
+    dof_shape = tuple(X0.shape[len(lead) + 1:])
     if nev > m:
         raise ValueError(f"nev={nev} exceeds block size m={m}")
     cdtype = X0.dtype
@@ -163,13 +188,14 @@ def lobpcg(A: Callable, M: Optional[Callable], X0: torch.Tensor, nev: int,
     floor = scale_floor
 
     def flat(op):
-        return lambda X: op(X.reshape((X.shape[0],) + dof_shape)).reshape(
-            X.shape[0], -1)
+        return lambda X: op(X.reshape(X.shape[:-1] + dof_shape)).reshape(
+            X.shape[:-1] + (-1,))
 
     def flat2(op):
         def f(X):
-            a, b = op(X.reshape((X.shape[0],) + dof_shape))
-            return a.reshape(X.shape[0], -1), b.reshape(X.shape[0], -1)
+            a, b = op(X.reshape(X.shape[:-1] + dof_shape))
+            return (a.reshape(X.shape[:-1] + (-1,)),
+                    b.reshape(X.shape[:-1] + (-1,)))
         return f
 
     Af = flat(A)
@@ -178,48 +204,48 @@ def lobpcg(A: Callable, M: Optional[Callable], X0: torch.Tensor, nev: int,
     Pf = flat(precond) if precond is not None else None
     Kf = flat(kernel_project) if kernel_project is not None else None
 
-    X = X0.reshape(m, -1).to(cdtype)
+    X = X0.reshape(lead + (m, -1)).to(cdtype)
     # Reseed degenerate (zero) warm-start rows: zero rows are ABSORBING
     # under the LOBPCG update (R = 0 ⇒ W = 0). The max(·, 1) floor makes
     # an all-zero block reseed every row.
-    rn = torch.linalg.vector_norm(X, dim=1)
-    bad0 = rn < 1e-6 * torch.clamp(rn.max(), min=1.0)
+    rn = torch.linalg.vector_norm(X, dim=-1)
+    bad0 = rn < 1e-6 * torch.clamp(rn.amax(-1, keepdim=True), min=1.0)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(RESEED)
-    fr = torch.randn((2, m, X.shape[1]), generator=generator, dtype=rdtype,
+    fr = torch.randn((2, m, X.shape[-1]), generator=generator, dtype=rdtype,
                      device=dev)
-    X = torch.where(bad0[:, None], torch.complex(fr[0], fr[1]), X)
+    X = torch.where(bad0[..., None], torch.complex(fr[0], fr[1]), X)
 
     C, _ = _whiten(_gram(X, Mf(X)), eps)
-    X = C.T @ X                      # M-orthonormal start block
+    X = C.mT @ X                     # M-orthonormal start block
     P = torch.zeros_like(X)
-    res = torch.full((m,), float("inf"), dtype=rdtype, device=dev)
+    res = torch.full(lead + (m,), float("inf"), dtype=rdtype, device=dev)
 
     def rownorm(U, MU):
-        s = torch.rsqrt(torch.clamp((U.conj() * MU).sum(dim=1).real,
+        s = torch.rsqrt(torch.clamp((U.conj() * MU).sum(dim=-1).real,
                                     min=fi.tiny))
         # Exact-zero (locked) rows stay zero.
-        nz = (torch.linalg.vector_norm(U, dim=1) > 0).to(rdtype)
-        return (s * nz)[:, None]
+        nz = (torch.linalg.vector_norm(U, dim=-1) > 0).to(rdtype)
+        return (s * nz)[..., None]
 
     def body(X, AX, MX, P, AP, MP):
         # Ritz values of the current (M-orthonormal) X.
-        lam = (X.conj() * AX).sum(dim=1).real
-        R = AX - MX * lam[:, None]
+        lam = (X.conj() * AX).sum(dim=-1).real
+        R = AX - MX * lam[..., None]
         alam = lam.abs()
-        scale = torch.maximum(alam, torch.clamp(floor * alam.max(),
-                                                min=1e-3))
-        rel = torch.linalg.vector_norm(R, dim=1) / scale
+        scale = torch.maximum(alam, torch.clamp(
+            floor * alam.amax(-1, keepdim=True), min=1e-3))
+        rel = torch.linalg.vector_norm(R, dim=-1) / scale
         # A whitening-dropped (all-zero) row must read as unconverged.
-        xnorm = (X.conj() * MX).sum(dim=1).real
+        xnorm = (X.conj() * MX).sum(dim=-1).real
         rel = torch.where(xnorm > 0.5, rel, float("inf"))
         conv = rel < tol
 
         W = Pf(R) if Pf is not None else R
         # M-project out span(X):  w_i -= Σ_j ⟨x_j, M w_i⟩ x_j.
-        W = W - (W.conj() @ MX.T).conj() @ X
+        W = W - (W.conj() @ MX.mT).conj() @ X
         # Soft locking: zero converged rows of W and P.
-        mask = (~conv)[:, None].to(rdtype)
+        mask = (~conv)[..., None].to(rdtype)
         W = W * mask
         P, AP, MP = P * mask, AP * mask, MP * mask
         AW, MW = AMf(W)
@@ -228,25 +254,25 @@ def lobpcg(A: Callable, M: Optional[Callable], X0: torch.Tensor, nev: int,
         W, AW, MW = W * sw, AW * sw, MW * sw
         P, AP, MP = P * sp_, AP * sp_, MP * sp_
 
-        S = torch.cat([X, W, P], dim=0)                   # (3m, N)
-        AS = torch.cat([AX, AW, AP], dim=0)
-        MS = torch.cat([MX, MW, MP], dim=0)
+        S = torch.cat([X, W, P], dim=-2)                  # (3m, N)
+        AS = torch.cat([AX, AW, AP], dim=-2)
+        MS = torch.cat([MX, MW, MP], dim=-2)
         C, good = _whiten_chol(_gram(S, MS), eps)        # (3m, 3m)
         H = _hermitize(C.mH @ _gram(S, AS) @ C)
         # Dropped directions: Ritz values above the spectrum, moderately
         # (a Gershgorin bound keeps the matrix scale sane).
-        big = 2.0 * H.abs().sum(dim=1).max() + 1.0
-        H = H + torch.diag((~good).to(rdtype) * big).to(H.dtype)
+        big = 2.0 * H.abs().sum(dim=-1).amax(-1, keepdim=True) + 1.0
+        H = H + torch.diag_embed((~good).to(rdtype) * big).to(H.dtype)
         theta, Y = jacobi_eigh(H, rel_tol=rr_tol)         # ascending
-        Ym = C @ Y[:, :m]                                 # coeffs of new X
-        Xn, AXn, MXn = Ym.T @ S, Ym.T @ AS, Ym.T @ MS
+        Ym = C @ Y[..., :m]                               # coeffs of new X
+        Xn, AXn, MXn = Ym.mT @ S, Ym.mT @ AS, Ym.mT @ MS
         # Implicit new P: W/P components of the update (X block zeroed).
         Yp = Ym.clone()
-        Yp[:m] = 0
-        Pn, APn, MPn = Yp.T @ S, Yp.T @ AS, Yp.T @ MS
+        Yp[..., :m, :] = 0
+        Pn, APn, MPn = Yp.mT @ S, Yp.mT @ AS, Yp.mT @ MS
         # Whiteout guard: if whitening dropped EVERY direction the update
         # is zero (absorbing); freeze the block instead.
-        ok = good.any()
+        ok = good.any(dim=-1)[..., None, None]
         Xn, AXn, MXn = (torch.where(ok, a, b) for a, b in
                         ((Xn, X), (AXn, AX), (MXn, MX)))
         Pn, APn, MPn = (torch.where(ok, a, b) for a, b in
@@ -254,17 +280,17 @@ def lobpcg(A: Callable, M: Optional[Callable], X0: torch.Tensor, nev: int,
         if Kf is not None:
             # One 2m-row projector call for X and P (A annihilates the
             # removed kernel component, so AX needs no correction).
-            K2 = Kf(torch.cat([Xn, Pn], dim=0))
+            K2 = Kf(torch.cat([Xn, Pn], dim=-2))
             M2 = Mf(K2)
-            Xn, MXn = Xn - K2[:m], MXn - M2[:m]
-            Pn, MPn = Pn - K2[m:], MPn - M2[m:]
+            Xn, MXn = Xn - K2[..., :m, :], MXn - M2[..., :m, :]
+            Pn, MPn = Pn - K2[..., m:, :], MPn - M2[..., m:, :]
         # RANK-AWARE done: the nev LOWEST healthy Ritz rows must be
         # converged, not rows [:nev] (warm starts arrive unsorted).
         lam_eff = torch.where(xnorm > 0.5, lam, float("inf"))
-        low = torch.argsort(lam_eff, stable=True)[:nev]
-        done = (rel[low] < tol).all()
+        low = torch.argsort(lam_eff, dim=-1, stable=True)[..., :nev]
+        done = (torch.gather(rel, -1, low) < tol).all(dim=-1)
         # Degeneration stop: fewer than nev healthy rows cannot complete.
-        done = done | ((xnorm > 0.5).sum() < nev)
+        done = done | ((xnorm > 0.5).sum(dim=-1) < nev)
         return (Xn, AXn, MXn, Pn, APn, MPn), rel, done
 
     def tracked(res):
@@ -272,50 +298,71 @@ def lobpcg(A: Callable, M: Optional[Callable], X0: torch.Tensor, nev: int,
         # dropped row must not disarm the stagnation stop).
         resh = torch.where(torch.isfinite(res), torch.clamp(res, max=1e6),
                            1e6)
-        return torch.sort(resh).values[:nev].max()
+        return torch.sort(resh, dim=-1).values[..., :nev].amax(dim=-1)
 
-    it, done, seg = 0, False, 16
-    while it < maxiter and not done:
+    def freeze(keep, old, new):
+        # A k that is done keeps its state: where(done) per k.
+        return tuple(torch.where(keep, a, b) for a, b in zip(old, new))
+
+    # ``done``: the device flags, (nk,) batched or 0-d; ``done_h``: their
+    # host copy, read once per iteration. While no k is done nothing is
+    # frozen (with one k, done ends the loop).
+    its = np.zeros(nk, np.int64)
+    done_h = np.zeros(nk, bool)
+    done = state = None
+    it, seg = 0, 16
+    while it < maxiter and not done_h.all():
         # Segment refresh (also the first AX/MX/AP/MP): they are formed
         # by recombination inside a segment; recomputing them between
         # segments kills the drift.
-        state = (X, *AMf(X), P, *AMf(P))
+        fresh = (X, *AMf(X), P, *AMf(P))
+        state = (freeze(done[..., None, None], state, fresh)
+                 if done_h.any() else fresh)
         res0 = tracked(res)
         it0 = it
-        while it < maxiter and it - it0 < seg and not done:
-            state, res, done_t = body(*state)
+        while it < maxiter and it - it0 < seg and not done_h.all():
+            new, rel, done_t = body(*state)
+            if done_h.any():
+                state = freeze(done[..., None, None], state, new)
+                res = torch.where(done[..., None], res, rel)
+                done = done | done_t
+            else:
+                state, res, done = new, rel, done_t
             X, P = state[0], state[3]
+            its[~done_h] += 1
             it += 1
-            # The one host read per iteration: the convergence flag.
-            done = bool(done_t)
+            # The one host read per iteration: the convergence flags.
+            done_h = done.cpu().numpy().reshape(nk)
         # Stagnation stop: a whole segment without progress on the worst
         # tracked residual means a numerical floor.
-        if not done:
-            done = bool(tracked(res) > 0.97 * res0)
+        if not done_h.all():
+            floored = tracked(res) > 0.97 * res0
+            done = done | floored if done_h.any() else floored
+            done_h = done.cpu().numpy().reshape(nk)
 
     X, AX, MX = state[0], state[1], state[2]
     # Final Ritz data on the exit state (X M-orthonormal up to roundoff).
-    nrm = torch.clamp((X.conj() * MX).sum(dim=1).real, min=fi.tiny)
-    lam = (X.conj() * AX).sum(dim=1).real / nrm
-    R = AX - MX * lam[:, None]
+    nrm = torch.clamp((X.conj() * MX).sum(dim=-1).real, min=fi.tiny)
+    lam = (X.conj() * AX).sum(dim=-1).real / nrm
+    R = AX - MX * lam[..., None]
     alam = lam.abs()
-    rel = torch.linalg.vector_norm(R, dim=1) / torch.maximum(
-        alam, torch.clamp(floor * alam.max(), min=1e-3))
+    rel = torch.linalg.vector_norm(R, dim=-1) / torch.maximum(
+        alam, torch.clamp(floor * alam.amax(-1, keepdim=True), min=1e-3))
     # Zero (whitening-dropped) rows: unconverged AND sorted last.
-    healthy = nrm > 0.5 * nrm.max()
+    healthy = nrm > 0.5 * nrm.amax(-1, keepdim=True)
     rel = torch.where(healthy, rel, float("inf"))
     lam = torch.where(healthy, lam, float("inf"))
-    lam, order = torch.sort(lam, stable=True)
-    rel = rel[order]
-    Xout = X[order]
+    lam, order = torch.sort(lam, dim=-1, stable=True)
+    rel = torch.gather(rel, -1, order)
+    Xout = torch.gather(X, -2, order[..., None].expand(X.shape))
     # Keep inf sentinels out of caller outputs; converged=False flags them.
     finite = torch.isfinite(lam)
-    lam_top = torch.where(finite, lam, -float("inf")).max()
+    lam_top = torch.where(finite, lam, -float("inf")).amax(-1, keepdim=True)
     lam_top = torch.where(torch.isfinite(lam_top), lam_top, 0.0)
     lam = torch.where(finite, lam, lam_top)
     rel = torch.where(torch.isfinite(rel), torch.clamp(rel, max=1e6), 1e6)
-    return LobpcgResult(eigenvalues=lam[:nev],
-                        eigenvectors=Xout.reshape((m,) + dof_shape),
-                        iterations=it,
-                        residual_norms=rel[:nev],
-                        converged=rel[:nev] < tol)
+    return LobpcgResult(eigenvalues=lam[..., :nev],
+                        eigenvectors=Xout.reshape(lead + (m,) + dof_shape),
+                        iterations=its if batched else int(its[0]),
+                        residual_norms=rel[..., :nev],
+                        converged=rel[..., :nev] < tol)

@@ -16,10 +16,14 @@ import torch
 __all__ = ["jacobi"]
 
 
-def jacobi(diag: torch.Tensor) -> Callable:
+def jacobi(diag: torch.Tensor, batched: bool = False) -> Callable:
     """Diagonal (Jacobi) preconditioner W = R / diag (``diag`` real, of
-    the dof shape, on the device of the blocks it will scale)."""
+    the dof shape, on the device of the blocks it will scale). With
+    ``batched``, ``diag`` is (nk, *dof_shape), one diagonal per k, and
+    scales k-batched blocks (nk, rows, *dof_shape)."""
     d = torch.clamp(diag.real, min=1e-30)
+    if batched:
+        d = d.unsqueeze(1)
 
     def apply(R):
         return R / d

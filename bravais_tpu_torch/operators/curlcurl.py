@@ -753,15 +753,15 @@ class BlochCurlCurl:
     # -- host f64 refine ------------------------------------------------------
 
     def spectral_refine_np(self, support: np.ndarray, k: np.ndarray,
-                           nev: int):
+                           nev: int, topk: int = 4, tau: float = 1e-5):
         """Exact f64 eigenvalues of the candidate blocks.
 
         The twisted-DFT blocks are exact invariant subspaces of the
         discrete pencil, so the exact discrete eigenvalues are the union
         over frequencies of each block's deflated eigenvalues.
         ``support[r, b] = Σ_j |X̂[r, b, j]|²`` (block energy of LOBPCG row
-        r) picks the candidate blocks carrying the nev+2 lowest rows;
-        each gets a σ-shifted generalized eigensolve (gradients moved to
+        r) picks the candidate blocks carrying the nev+2 lowest rows (per
+        row the ``topk`` largest blocks above ``tau``·row-max); each gets a σ-shifted generalized eigensolve (gradients moved to
         σ, copies dropped at 0.9σ, residuals against the ORIGINAL pencil).
         Returns (eigenvalues[:nev], residual certificates[:nev]), or None
         when the support is all zero."""
@@ -769,7 +769,7 @@ class BlochCurlCurl:
 
         fd = self.fastdiag_G()
         nrows = min(nev + 2, support.shape[0])
-        idx = fd.candidate_blocks(support[:nrows])
+        idx = fd.candidate_blocks(support[:nrows], topk, tau)
         if idx.size == 0:
             return None
         k = np.asarray(k, np.float64)

@@ -38,11 +38,6 @@ import torch
 
 __all__ = ["FastDiag", "extract_stencil", "extract_stencil_rect"]
 
-#: Refine candidates: per LOBPCG row, at most CAND_TOPK blocks, each with
-#: more than CAND_TAU of the row's largest block energy.
-CAND_TOPK, CAND_TAU = 4, 1e-5
-
-
 def _disk_cached(key_obj, compute):
     """Load/store a numpy array under a content-hash key in the repo's
     stencil cache (BRAVAIS_STENCIL_CACHE overrides; empty string
@@ -208,21 +203,24 @@ class FastDiag:
 
     def _theta(self, k) -> list:
         """Per-axis twisted frequencies θ_{m,i} = (k·a_i + 2πm)/n_i, in
-        the real working precision (as the reference computes them)."""
+        the real working precision (as the reference computes them): d
+        tensors (n_i,) at one k (d,), (nk, n_i) for a k table (nk, d)."""
         A = torch.as_tensor(self.A_rows, dtype=self.rdtype,
                             device=self.device)
-        ka = A @ torch.as_tensor(np.asarray(k, np.float64),
-                                 dtype=self.rdtype, device=self.device)
-        return [(ka[i] + 2.0 * math.pi * torch.arange(
+        kt = torch.as_tensor(np.asarray(k, np.float64), dtype=self.rdtype,
+                             device=self.device)
+        ka = A @ kt if kt.ndim == 1 else kt @ A.mT
+        return [(ka[..., i, None] + 2.0 * math.pi * torch.arange(
             n, dtype=self.rdtype, device=self.device)) / n
             for i, n in enumerate(self.shape)]
 
     def _fwd_mats(self, theta) -> list:
-        """F_i[m, e] = e^{-i θ_m e} (inverse is Fᴴ/n)."""
+        """F_i[m, e] = e^{-i θ_m e} (inverse is Fᴴ/n); (nk, n, n) with a
+        leading k axis on θ."""
         out = []
         for i, n in enumerate(self.shape):
             e = torch.arange(n, dtype=self.rdtype, device=self.device)
-            ang = -theta[i][:, None] * e[None, :]
+            ang = -theta[i][..., :, None] * e[None, :]
             out.append(torch.polar(torch.ones_like(ang), ang))
         return out
 
@@ -239,55 +237,90 @@ class FastDiag:
         return self._dev_stencils[key]
 
     def blocks(self, terms: Sequence[Tuple[str, float]], k) -> torch.Tensor:
-        """(nblocks, D, Dc) complex blocks of Σ coeff·stencil at k."""
+        """(nblocks, D, Dc) complex blocks of Σ coeff·stencil at k;
+        (nk, nblocks, D, Dc) for a k table (nk, d)."""
         theta = self._theta(k)
+        lead = tuple(theta[0].shape[:-1])
         # per-δ phase  w[s, b] = Π_i e^{i θ_{m_i} δ_i}
         w = None
         for i in range(self.d):
             zi = torch.polar(torch.ones_like(theta[i]), theta[i])
             di = torch.as_tensor(self.offsets[:, i], device=self.device)
-            one = torch.ones_like(zi)
-            wi = torch.where((di == 1)[:, None], zi[None, :],
-                             torch.where((di == -1)[:, None],
-                                         zi.conj()[None, :], one[None, :]))
+            zi, one = zi[..., None, :], torch.ones_like(zi)[..., None, :]
+            wi = torch.where((di == 1)[:, None], zi,
+                             torch.where((di == -1)[:, None], zi.conj(),
+                                         one))                  # (..., S, n_i)
             w = wi if w is None else (w[..., None] * wi.reshape(
-                (wi.shape[0],) + (1,) * (w.ndim - 1) + (wi.shape[1],)))
-        w = w.reshape(w.shape[0], -1)                            # (S, B)
+                wi.shape[:-1] + (1,) * (w.ndim - len(lead) - 1)
+                + wi.shape[-1:]))
+        w = w.reshape(lead + (w.shape[len(lead)], -1))         # (..., S, B)
         Sf, bshape = self._stencil_dev(terms)
         # Real stencils: two real GEMMs instead of a complex×real one.
-        T = torch.complex(w.real.T @ Sf, w.imag.T @ Sf)
-        return T.reshape((w.shape[1],) + tuple(bshape))
+        T = torch.complex(w.real.mT @ Sf, w.imag.mT @ Sf)
+        return T.reshape(lead + (w.shape[-1],) + tuple(bshape))
 
     def to_blocks(self, u: torch.Tensor, F: Sequence[torch.Tensor]
                   ) -> torch.Tensor:
         """Fields (L, *field_shape) → (L, nblocks, D) twisted-DFT
-        coefficients."""
+        coefficients. With k-batched ``F`` ((nk, n, n) each): fields
+        (nk, L, *field_shape), or (L, *field_shape) shared by all k, →
+        (nk, L, nblocks, D)."""
         d, p = self.d, self.p
-        L = u.shape[0]
-        u = u.to(self.dtype).reshape(
-            (L, self.ncomp) + tuple(x for n in self.shape for x in (n, p)))
+        inter = tuple(x for n in self.shape for x in (n, p))
+        if F[0].ndim == 2:
+            L = u.shape[0]
+            u = u.to(self.dtype).reshape((L, self.ncomp) + inter)
+            for i in range(d):
+                ax = 2 + 2 * i
+                u = torch.movedim(torch.tensordot(F[i], u,
+                                                  dims=([1], [ax])), 0, ax)
+            perm = ([0] + [2 + 2 * i for i in range(d)] + [1]
+                    + [3 + 2 * i for i in range(d)])
+            return u.permute(perm).reshape(L, self.nblocks, self.D)
+        nk = F[0].shape[0]
+        L = u.shape[u.ndim - len(self.field_shape) - 1]
+        u = u.to(self.dtype).reshape((-1, L, self.ncomp) + inter)
+        u = u.expand((nk,) + u.shape[1:])
         for i in range(d):
-            ax = 2 + 2 * i
-            u = torch.movedim(torch.tensordot(F[i], u, dims=([1], [ax])),
-                              0, ax)
-        perm = ([0] + [2 + 2 * i for i in range(d)] + [1]
-                + [3 + 2 * i for i in range(d)])
-        return u.permute(perm).reshape(L, self.nblocks, self.D)
+            ax = 3 + 2 * i
+            u = torch.movedim(u, ax, -1)
+            # û[..., m] = Σ_e F[k, m, e] u[..., e], one GEMM per k.
+            u = torch.movedim((u.reshape(nk, -1, u.shape[-1]) @ F[i].mT)
+                              .reshape(u.shape), -1, ax)
+        perm = ([0, 1] + [3 + 2 * i for i in range(d)] + [2]
+                + [4 + 2 * i for i in range(d)])
+        return u.permute(perm).reshape(nk, L, self.nblocks, self.D)
 
     def from_blocks(self, v: torch.Tensor, F: Sequence[torch.Tensor]
                     ) -> torch.Tensor:
-        """Inverse of :meth:`to_blocks`: (L, nblocks, D) → fields."""
+        """Inverse of :meth:`to_blocks`: (L, nblocks, D) → fields;
+        (nk, L, nblocks, D) → (nk, L, *field_shape) with k-batched F."""
         d, p = self.d, self.p
-        L = v.shape[0]
-        v = v.reshape((L,) + tuple(self.shape) + (self.ncomp,) + (p,) * d)
-        perm = [0, d + 1] + [x for i in range(d) for x in (1 + i, d + 2 + i)]
+        if F[0].ndim == 2:
+            L = v.shape[0]
+            v = v.reshape((L,) + tuple(self.shape) + (self.ncomp,)
+                          + (p,) * d)
+            perm = [0, d + 1] + [x for i in range(d)
+                                 for x in (1 + i, d + 2 + i)]
+            u = v.permute(perm)
+            for i in range(d):
+                ax = 2 + 2 * i
+                Fi_inv = F[i].conj().T / self.shape[i]
+                u = torch.movedim(torch.tensordot(Fi_inv, u,
+                                                  dims=([1], [ax])), 0, ax)
+            return u.reshape((L,) + self.field_shape)
+        nk, L = v.shape[:2]
+        v = v.reshape((nk, L) + tuple(self.shape) + (self.ncomp,) + (p,) * d)
+        perm = [0, 1, d + 2] + [x for i in range(d)
+                                for x in (2 + i, d + 3 + i)]
         u = v.permute(perm)
         for i in range(d):
-            ax = 2 + 2 * i
-            Fi_inv = F[i].conj().T / self.shape[i]
-            u = torch.movedim(torch.tensordot(Fi_inv, u, dims=([1], [ax])),
-                              0, ax)
-        return u.reshape((L,) + self.field_shape)
+            ax = 3 + 2 * i
+            Fi_inv = F[i].conj().mT / self.shape[i]
+            u = torch.movedim(u, ax, -1)
+            u = torch.movedim((u.reshape(nk, -1, u.shape[-1]) @ Fi_inv.mT)
+                              .reshape(u.shape), -1, ax)
+        return u.reshape((nk, L) + self.field_shape)
 
     def solver(self, terms: Sequence[Tuple[str, float]], k,
                method: str = "lu") -> Callable:
@@ -390,17 +423,17 @@ class FastDiag:
             o += c
         return out
 
-    def candidate_blocks(self, support: np.ndarray) -> np.ndarray:
+    def candidate_blocks(self, support: np.ndarray, topk: int = 4,
+                         tau: float = 1e-5) -> np.ndarray:
         """Flat block indices carrying the converged bands: per LOBPCG
-        row, the ``CAND_TOPK`` largest-|X̂|² blocks above
-        ``CAND_TAU``·row-max."""
+        row, the ``topk`` largest-|X̂|² blocks above ``tau``·row-max."""
         sup = np.asarray(support, np.float64)
         cand = set()
         for r in range(sup.shape[0]):
-            order = np.argsort(sup[r])[::-1][:CAND_TOPK]
+            order = np.argsort(sup[r])[::-1][:topk]
             mx = sup[r][order[0]]
             for b in order:
-                if sup[r][b] > CAND_TAU * mx:
+                if sup[r][b] > tau * mx:
                     cand.add(int(b))
         return np.asarray(sorted(cand), np.int64)
 

@@ -79,30 +79,54 @@ class BlochHelmholtz:
                 self.rdtype)
         return self._consts
 
-    def _k(self, k) -> list:
-        """k rounded to the working precision, as host floats."""
-        return [float(v) for v in np.asarray(k, self._np_rdtype)]
+    def _k(self, k) -> np.ndarray:
+        """k rounded to the working precision: one k-point (d,) or a table
+        (nk, d)."""
+        k = np.asarray(k, self._np_rdtype)
+        if k.ndim not in (1, 2) or k.shape[-1] != self.space.dim:
+            raise ValueError(f"k must be ({self.space.dim},) or (nk, "
+                             f"{self.space.dim}), got {k.shape}")
+        return k.astype(np.float64)
+
+    def _apply(self, u: torch.Tensor, k, want: str):
+        """``apply_global`` on a block u (rows, N₁, ..., N_d) at one k, or
+        on a k-batched block (nk, rows, N₁, ..., N_d) with a k table
+        (nk, d): the k's row groups go through one element apply."""
+        d = self.space.dim
+        if k.ndim == 2 and (u.ndim != d + 2 or u.shape[0] != k.shape[0]):
+            raise ValueError(f"a k table {k.shape} takes blocks (nk, rows, "
+                             f"*N) with nk = {k.shape[0]}, got "
+                             f"{tuple(u.shape)}")
+        flat = u.reshape((-1,) + tuple(u.shape[u.ndim - d:])).to(self.dtype)
+        return tuple(t.reshape(u.shape) if t is not None else None
+                     for t in apply_global(self.space, flat, self.consts(),
+                                           k, want))
 
     def apply_A(self, u: torch.Tensor, k) -> torch.Tensor:
-        """A(k) u for a block u (rows, N₁, ..., N_d)."""
-        return apply_global(self.space, u.to(self.dtype), self.consts(),
-                            self._k(k), "A")[0]
+        """A(k) u for a block u (rows, N₁, ..., N_d), or for a k-batched
+        block (nk, rows, N₁, ..., N_d) with k of shape (nk, d)."""
+        return self._apply(u, self._k(k), "A")[0]
 
     def apply_M(self, u: torch.Tensor, k=None) -> torch.Tensor:
-        """M u (k-free β-mass) for a block u."""
-        return apply_global(self.space, u.to(self.dtype), self.consts(),
-                            [0.0] * self.space.dim, "M")[1]
+        """M u (k-free β-mass) for a block u, with any leading axes
+        ((rows, ...) or (nk, rows, ...))."""
+        return self._apply(u, np.zeros(self.space.dim), "M")[1]
 
     def apply_AM(self, u: torch.Tensor, k):
-        """(A(k) u, M u) from one fused element apply."""
-        return apply_global(self.space, u.to(self.dtype), self.consts(),
-                            self._k(k), "AM")
+        """(A(k) u, M u) from one fused element apply; blocks and k as in
+        :meth:`apply_A`."""
+        return self._apply(u, self._k(k), "AM")
 
     def diag_A(self, k) -> torch.Tensor:
         """Real diagonal of A(k) on the device (Jacobi / Chebyshev
-        scaling)."""
+        scaling): (N₁, ..., N_d) at one k, (nk, N₁, ..., N_d) for a k
+        table (nk, d)."""
         k = np.asarray(k, self._np_rdtype)
-        return self._dev_diag_S + float(np.sum(k * k)) * self._dev_diag_Ma
+        if k.ndim == 1:
+            return self._dev_diag_S + float(np.sum(k * k)) * self._dev_diag_Ma
+        ksq = torch.as_tensor(np.sum(k * k, axis=-1), device=self.device)
+        return (self._dev_diag_S + ksq.reshape((-1,) + (1,) * self.space.dim)
+                * self._dev_diag_Ma)
 
     @property
     def diag_M(self) -> np.ndarray:
@@ -276,9 +300,12 @@ class BlochHelmholtz:
         discretization-error level).
 
         Returns ``solve(X0, k, nev, tol, maxiter)`` → (LobpcgResult with
-        field eigenvectors (m, N₁, ..., N_d), support (m, B));
-        ``solve.refine_np`` is the exact f64 block refine
-        (``FastDiag.spectral_refine_np``)."""
+        field eigenvectors (m, N₁, ..., N_d), support (m, B)). With a k
+        table (nk, d) it solves every k at once (``solve.batched``): the
+        blocks (nk, B, D, D), one Cholesky per k and block, the start
+        block X0 (m, *N) shared, and a k-batched LOBPCG; every output then
+        has a leading k axis. ``solve.refine_np`` is the exact f64 block
+        refine of one k (``FastDiag.spectral_refine_np``)."""
         from bravais_tpu_torch.eigen.lobpcg import (PROD_RR_TOL,
                                                     engine_scale_floor,
                                                     lobpcg)
@@ -295,11 +322,11 @@ class BlochHelmholtz:
         s_ = self.qp_fd_shift()
         self.qp_fastdiag()    # host stencil extraction, cached
 
-        def cols(X):   # (L, B, D) rows → (B, D, L) block columns
-            return X.permute(1, 2, 0)
+        def cols(X):   # (..., L, B, D) rows → (..., B, D, L) block columns
+            return X.movedim(-3, -1)
 
         def rows(Y):
-            return Y.permute(2, 0, 1)
+            return Y.movedim(-1, -3)
 
         def solve(X0, k, nev, tol, maxiter):
             fd = self.qp_fastdiag()
@@ -316,12 +343,14 @@ class BlochHelmholtz:
                          lambda X: rows(TM @ cols(X)),
                          fd.to_blocks(X0, F), nev, maxiter=maxiter, tol=tol,
                          precond=lambda R: rows(Tpc @ cols(R)),
-                         scale_floor=sfloor, rr_tol=PROD_RR_TOL)
+                         scale_floor=sfloor, rr_tol=PROD_RR_TOL,
+                         batched=np.ndim(k) == 2)
             support = (res.eigenvectors.abs() ** 2).sum(dim=-1)
             Xf = fd.from_blocks(res.eigenvectors, F)
             return res._replace(eigenvectors=Xf), support
 
         solve.provides_support = True
+        solve.batched = True
         solve.refine_np = (lambda support, k, nev:
                            self.qp_fastdiag().spectral_refine_np(support, k,
                                                                  nev))

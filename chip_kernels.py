@@ -6,6 +6,8 @@ give them, on one NVIDIA GPU, for this checkout's package or another's.
     python3 chip_kernels.py --tree DIR   # the package under DIR, e.g. a
                                          # `git archive` of an earlier commit
     python3 chip_kernels.py --sweep      # and config 3's sweep around them
+    python3 chip_kernels.py --kernels h1 # only these kernels (of jacobi,
+                                         # h1, nd)
 
 It builds that package's kernels, prints each kernel entry's registers,
 spills and shared memory (``chip_smoke.ptxas_report``), sets up config 3
@@ -15,7 +17,8 @@ config 4 (n=8 p=4: Jacobi on its 512 × 64×64 L-twin batch, nd at (l, q)
 config 2 (its h1 shapes and Jacobi 45×45), prints nd's launch shape and
 resident blocks per SM at its config-3 and FCC calls (where the package
 reports them, ``nd_apply.launch_shape``) and prints the card's name and power
-limit, one line per kernel and shape (``chip_smoke.kernel_times``: the kernel's call
+limit, one line per kernel and shape (``chip_smoke.kernel_times``, config 5's
+h1 and Jacobi shapes too where the package has config 5: the kernel's call
 time between CUDA events and its device time from a ``torch.profiler``
 trace, for Jacobi ``torch.linalg.eigh``'s two times; the plain versions
 are not timed) and the records as one JSON line. With ``--sweep`` it runs
@@ -43,6 +46,9 @@ def main():
                     help="checkout whose bravais_tpu_torch is timed")
     ap.add_argument("--sweep", action="store_true",
                     help="run config 3's sweep before and after the timings")
+    ap.add_argument("--kernels", nargs="+", default=["jacobi", "h1", "nd"],
+                    choices=["jacobi", "h1", "nd"],
+                    help="the kernels to time (default all three)")
     args = ap.parse_args()
 
     import torch
@@ -66,15 +72,18 @@ def main():
     ptxas = chip_smoke.ptxas_report(cuda_build.build_all())
     dev = torch.device("cuda", 0)
     setup = chip_smoke.dielectric(dev)
-    op4 = chip_smoke.fcc_problem(dev)[2]
-    occupancy = nd_occupancy(dev, setup[2], op4)
+    fcc = {"jacobi", "nd"} & set(args.kernels)
+    op4 = chip_smoke.fcc_problem(dev)[2] if fcc else None
+    occupancy = nd_occupancy(dev, setup[2], op4) if "nd" in fcc else None
     rates = {}
     if args.sweep:
         rates["untraced"] = chip_smoke.phase_dielectric(dev, setup)[1]
     rods = (chip_smoke.rods_setup(dev) if importlib.util.find_spec(
         "bravais_tpu_torch.operators.helmholtz") else None)
+    op5 = (chip_smoke.config5_operator(dev) if importlib.util.find_spec(
+        "bravais_tpu_torch.cli.config5_all14") else None)
     times = chip_smoke.kernel_times(dev, setup[2], rods, plain=False,
-                                    op4=op4)
+                                    op4=op4, op5=op5, kernels=args.kernels)
     chip_smoke.log_times(times)
     if args.sweep:
         rates["after_trace"] = chip_smoke.phase_dielectric(dev, setup)[1]

@@ -13,7 +13,8 @@ non-zero; without a CUDA device it exits 1 before doing anything):
    ``nvcc`` each, all started together, and print each kernel entry's
    registers, barriers, spills and shared memory;
 3. kernel vs plain: the Jacobi kernel against its plain torch version
-   on complex64 Hermitian matrices (n = 16, 33, 45, 48, 64; batch 1 and 8;
+   on complex64 Hermitian matrices (n = 10, 16, 30, 33, 45, 48, 64; batch
+   1 and 8;
    the graded 45×45 matrix; the config-3 L-twin blocks, n = 27 × 216; the
    FCC field path's L-twin blocks, n = 64 × 512);
    the Nédélec (nd) and H1 element kernels against their plain versions
@@ -22,7 +23,9 @@ non-zero; without a CUDA device it exits 1 before doing anything):
    n=3 p=2 shape, varying coefficients, every half ("AM", "A", "M"), h1 at
    k = 0 and k ≠ 0, h1 also at config 2's shapes: 16 rows of 256
    elements at (l, q) = (4, 5) and the multigrid's p=1 levels, (2, 3) on
-   64 and 4 elements, at k ≠ 0; relative error < 2e-5);
+   64 and 4 elements, at k ≠ 0, h1 at config 5's (l, q) = (5, 6) on 80
+   rows of TRI n=6's 216 elements with a table of its 8 k-points;
+   relative error < 2e-5);
 4. headline sweep: FCC Maxwell, n=8 p=4 (98,304 Nédélec dofs), Γ–X–W–L
    nk=16 with Γ nudged to 2e-2·b₁, 10 bands in a block of 16, spectral
    engine, device stop 1e-3 then the f64 host refine, warm-started; one
@@ -74,7 +77,21 @@ non-zero; without a CUDA device it exits 1 before doing anything):
    ``--resume``, which must find every k finished; both exit 0, and
    ``bands.npz`` holds finite bands at all 8 k within 1e-6 of the
    analytic bands at the nudged k;
-8. after the sweeps, so that the launch-bound sweeps run in a process
+8. config 5: ``[config5]`` all 14 Bravais lattices (``LATTICE_NAMES``,
+   the reference's variant parameters), empty-lattice scalar Helmholtz at
+   n=6 p=4 (13,824 dofs), the 8 generic k of ``KFRAC`` in ONE k-batched
+   ``BandSweep.run`` per lattice and engine (``python -m
+   bravais_tpu_torch.cli.config5_all14``'s ``build``), nev 6 in a block of
+   10, tol 1e-6 (device stop 1e-5, then the f64 refine), maxiter 300: the
+   spectral engine (twisted-DFT blocks of D=64, exact block refine) and
+   the matrix-free built-in solve (Jacobi, the h1 kernel with a k table);
+   per lattice the error against |k+G|², iterations, the measured wall,
+   the refine and the launches; gates: spectral worst < 1e-5 (every
+   lattice above 1e-6 named), matrix-free worst < 1e-4, launches equal
+   to the batch's calls, and on TRI ``run(chunk=1)`` giving the
+   iterations per k within ±1 (rounding; the line counts the equal ones)
+   and bands within 1e-6;
+9. after the sweeps, so that the launch-bound sweeps run in a process
    the profiler has not traced: a ``torch.profiler`` count showing that
    one Jacobi call and one nd call (config 3, 16 rows, fused and M-half;
    the FCC field path's shapes) are each one device operation, then each
@@ -82,7 +99,9 @@ non-zero; without a CUDA device it exits 1 before doing anything):
    Rayleigh–Ritz, 16×16 whitening, 216 × 27×27 and 512 × 64×64 L-twin;
    h1 at 16, 32 and 48 rows of config 3, config 2's fused (A, M) at
    k ≠ 0 and its multigrid levels' p=1 "A" on 64 and 4 elements; nd at
-   16 and 48 rows of config 3 and 16 rows of the FCC field path): its
+   16 and 48 rows of config 3 and 16 rows of the FCC field path; config
+   5's h1 "A" and fused on 16 and 80 rows with a table of 8 k and its
+   Jacobi Rayleigh–Ritz batch 8 × 30×30): its
    call time between CUDA events (host issue included;
    ``ms`` in the kernels line), its device time from a ``torch.profiler``
    trace (``device_ms``), the plain version's call time, for Jacobi
@@ -148,6 +167,12 @@ ELEM_BAR = 2e-5
 FIELD_DEVICE_TOL, FIELD_PASSES = 1e-5, 1
 CLI_ARGS = ("--lattice", "BCC", "--problem", "maxwell", "--engine", "field",
             "--n", "8", "--p", "4", "--nk", "8", "--nev", "10")
+# Config 5 (``benchmarks/config5_all14.py``): all 14 lattices, n=6 p=4, the
+# 8 KFRAC k in one batched run, nev 6 in a block of 10; the gates are the
+# reference script's (spectral) and its recorded matrix-free worst 5.5e-5
+# (docs/CONFIG5.md) rounded up.
+C5_N, C5_P, C5_NEV, C5_TOL, C5_MAXITER = 6, 4, 6, 1e-6, 300
+C5_SPECTRAL_BAR, C5_FIELD_BAR = 1e-5, 1e-4
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and float32 flop/s
 # outside the tensor cores.
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -234,7 +259,8 @@ def device_ms(fn, reps=20):
     return sum(e.time_range.elapsed_us() for e in dev) / reps / 1e3
 
 
-def kernel_times(dev, op3, rods=None, plain=True, op4=None):
+def kernel_times(dev, op3, rods=None, plain=True, op4=None, op5=None,
+                 kernels=("jacobi", "h1", "nd")):
     """Per-call times of the three kernels at the shapes the main paths
     give them: {kernel: {shape: record}}. Each record holds the time of
     one call between two CUDA events, the host's issue in it (``ms``), the
@@ -251,8 +277,13 @@ def kernel_times(dev, op3, rods=None, plain=True, op4=None):
     256 elements and its multigrid's p=1 "A" on 16 rows of 64 and of 4
     elements; with ``op4`` (the FCC field path's operator, n=8 p=4) also
     Jacobi on its 512 × 64×64 L-twin batch and nd fused and M-half on 16
-    rows of its 512 elements, (l, q) = (5, 6). ``op3`` is the config-3
-    operator."""
+    rows of its 512 elements, (l, q) = (5, 6); with ``op5`` (a config-5
+    operator, n=6 p=4) also h1 "A" and fused (A, M) at (5, 6) on 16 and 80
+    rows of its 216 elements with a table of its 8 k-points (2 and 10 rows
+    a k: the whitening-sized block and the batched W block), and Jacobi
+    on the (8, 30, 30) batch of its Rayleigh–Ritz. ``op3`` is the config-3
+    operator; ``kernels`` names the kernels to time."""
+    import numpy as np
     import torch
     from bravais_tpu_torch.eigen import jacobi_cuda
     from bravais_tpu_torch.eigen.jacobi_eigh import (jacobi_eigh,
@@ -278,14 +309,14 @@ def kernel_times(dev, op3, rods=None, plain=True, op4=None):
     gen = torch.Generator(device=dev).manual_seed(11)
     c = op3.qp_L().consts()
     k0 = [0.0] * c.d
-    for rows in (16, 32, 48):
+    for rows in (16, 32, 48) if "h1" in kernels else ():
         ue = torch.randn((rows * c.nelem,) + (c.l,) * c.d, generator=gen,
                          dtype=torch.complex64, device=dev)
         out["h1"][f"rows {rows} k=0 A"] = record(
             lambda: h1_apply.helmholtz_apply(ue, c, k0, "A"),
             lambda: h1_apply.helmholtz_apply_plain(ue, c, k0, "A"),
             h1_apply.work(ue.shape[0], c, k0, "A"))
-    if rods is not None:
+    if rods is not None and "h1" in kernels:
         levels = rods[2].gmg.levels
         k2 = [float(v) for v in
               levels[0].op.space.grid.lattice.k_cart((0.3, 0.1))]
@@ -301,10 +332,23 @@ def kernel_times(dev, op3, rods=None, plain=True, op4=None):
                 lambda: h1_apply.helmholtz_apply(ue, c, k2, want),
                 lambda: h1_apply.helmholtz_apply_plain(ue, c, k2, want),
                 h1_apply.work(ue.shape[0], c, k2, want))
+    if op5 is not None and "h1" in kernels:
+        from bravais_tpu_torch.cli.config5_all14 import KFRAC
+        c = op5.consts()
+        lat5 = op5.space.grid.lattice
+        kt = np.asarray([lat5.k_cart(f) for f in KFRAC], np.float32)
+        for rows in (16, 80):
+            ue = torch.randn((rows * c.nelem,) + (c.l,) * c.d, generator=gen,
+                             dtype=torch.complex64, device=dev)
+            for want in ("A", "AM"):
+                out["h1"][f"config-5 rows {rows} k-table 8 {want}"] = record(
+                    lambda: h1_apply.helmholtz_apply(ue, c, kt, want),
+                    lambda: h1_apply.helmholtz_apply_plain(ue, c, kt, want),
+                    h1_apply.work(ue.shape[0], c, kt, want))
     nd_shapes = [("", op3, 16), ("", op3, 48)]
     if op4 is not None:
         nd_shapes.append(("fcc ", op4, 16))
-    for tag, op, rows in nd_shapes:
+    for tag, op, rows in nd_shapes if "nd" in kernels else ():
         c = op.nd_consts()
         ue = torch.randn((rows * c.nelem, c.ndof), generator=gen,
                          dtype=torch.complex64, device=dev)
@@ -318,9 +362,12 @@ def kernel_times(dev, op3, rods=None, plain=True, op4=None):
                   ("l-twin 216x27x27", ltwin_blocks(op3), None)]
     if rods is not None:
         jac_shapes.append(("rr 45x45", rand_herm(45, 56), 1e-4))
+    if op5 is not None:
+        jac_shapes.append(("rr 8x30x30", np.stack(
+            [rand_herm(30, 60 + i) for i in range(8)]), 1e-4))
     if op4 is not None:
         jac_shapes.append(("l-twin 512x64x64", ltwin_blocks(op4), None))
-    for key, H, rel_tol in jac_shapes:
+    for key, H, rel_tol in jac_shapes if "jacobi" in kernels else ():
         H = torch.as_tensor(H, dtype=torch.complex64, device=dev)
         nsw = jacobi_cuda.sweeps_run(H, rel_tol=rel_tol).reshape(-1)
         nsw = nsw.cpu().numpy()
@@ -366,7 +413,7 @@ def phase_kernels(dev):
                                                     jacobi_eigh_plain)
 
     max_abs = 0.0
-    for n, batch in itertools.product((16, 33, 45, 48, 64), (1, 8)):
+    for n, batch in itertools.product((10, 16, 30, 33, 45, 48, 64), (1, 8)):
         Hs = np.stack([rand_herm(n, 1000 * n + i) for i in range(batch)])
         H = torch.as_tensor(Hs.astype(np.complex64), device=dev)
         w, V = jacobi_eigh(H)
@@ -548,11 +595,14 @@ def _rel(a, b):
                  / torch.linalg.vector_norm(b))
 
 
-def phase_elements(dev, op3, rods, op4):
+def phase_elements(dev, op3, rods, op4, op5):
     """The nd and h1 element kernels against their plain versions; returns
     their max abs errors (nd, h1). ``rods`` is the config-2 setup, whose
     multigrid levels give h1 its 2D shapes; ``op4`` the FCC field path's
-    operator, which gives nd its (l, q) = (5, 6) shape."""
+    operator, which gives nd its (l, q) = (5, 6) shape; ``op5`` a config-5
+    operator (TRI n=6 p=4), which gives h1 its (5, 6) shape with a table
+    of the 8 k-points on 80 rows (10 a k), as the batched solve calls
+    it."""
     import numpy as np
     import torch
     from bravais_tpu_torch.lattices import make_lattice
@@ -615,11 +665,16 @@ def phase_elements(dev, op3, rods, op4):
               f"{lv.op.space.grid.shape[1]} p={lv.op.space.p} k!=0",
               lv.op.consts(), 16, k2)
              for lv in (levels[0], levels[2], levels[-1])]
+    from bravais_tpu_torch.cli.config5_all14 import KFRAC
+    lat5 = op5.space.grid.lattice
+    k5 = np.asarray([lat5.k_cart(f) for f in KFRAC], np.float32)
+    h1_5 = [("config-5 TRI k-table 8", op5.consts(), 80, k5)]
     for label, c, rows, k in [("config-3 k=0", c3, 16, [0.0] * 3),
                               ("config-3 k=0", c3, 32, [0.0] * 3),
                               ("config-3 k=0", c3, 48, [0.0] * 3),
                               ("config-3 k!=0", c3, 16, kx),
-                              ("FCC n=3 p=2 k!=0", h1_small, 5, k3)] + h1_2d:
+                              ("FCC n=3 p=2 k!=0", h1_small, 5, k3)] \
+            + h1_2d + h1_5:
         ue = dofs(rows * c.nelem, (c.l,) * c.d)
         errs = []
         for want in ("AM", "A", "M"):
@@ -1181,6 +1236,134 @@ def phase_fcc_field(dev, setup, nd_shape, passes=FIELD_PASSES):
     return got, len(kc) / wall
 
 
+def config5_operator(dev):
+    """Config 5's TRI operator (n=6 p=4, complex64 on ``dev``), whose
+    shapes the kernel gates and times use."""
+    from bravais_tpu_torch.cli.config5_all14 import build
+    return build("TRI", C5_N, C5_P, C5_NEV, C5_TOL, C5_MAXITER, "field",
+                 dev)[2]
+
+
+def expected_c5_launches(iterations, engine):
+    """The kernel launches of one k-batched config-5 ``run``: the k-points
+    step in lockstep, so the batch makes max(iterations) iterations, each
+    one Rayleigh–Ritz Jacobi launch for all k, plus one for the start
+    whitening; the matrix-free engine also one h1 M-half (start
+    whitening), one fused (A, M) per iteration (W) and two per
+    16-iteration segment (X and P refresh), each for all k at once."""
+    it = int(max(iterations))
+    out = {"h1 A": 0, "h1 AM": 0, "h1 M": 0, "jacobi": 1 + it}
+    if engine == "field":
+        out.update({"h1 AM": it + 2 * -(-it // 16), "h1 M": 1})
+    return out
+
+
+def _c5_counts():
+    from bravais_tpu_torch.eigen import jacobi_cuda
+    from bravais_tpu_torch.operators import h1_apply
+    return {"h1 A": h1_apply.launches_by_want["A"],
+            "h1 AM": h1_apply.launches_by_want["AM"],
+            "h1 M": h1_apply.launches_by_want["M"],
+            "jacobi": jacobi_cuda.launches}
+
+
+def _c5_zero():
+    from bravais_tpu_torch.eigen import jacobi_cuda
+    from bravais_tpu_torch.operators import h1_apply
+    jacobi_cuda.launches = h1_apply.launches = 0
+    for want in h1_apply.launches_by_want:
+        h1_apply.launches_by_want[want] = 0
+
+
+def phase_config5(dev):
+    """Config 5: all 14 Bravais lattices at n=6 p=4 (13,824 dofs), the 8
+    generic k of ``KFRAC`` in ONE k-batched ``BandSweep.run`` per lattice
+    and engine (spectral, and the matrix-free built-in solve with Jacobi
+    and the h1 kernel at a k table of 8), each with every count set to 0
+    just before and read just after. Gates: spectral worst error < 1e-5
+    (the reference script's gate; every lattice above 1e-6 named),
+    matrix-free worst < 1e-4, every launch count equal to the batch's
+    calls; on TRI, ``run(chunk=1)`` (one k per solve) gives the
+    iterations per k within ±1 and bands within 1e-6 relative. Returns
+    {engine: the launches summed over the 14 lattices}."""
+    import numpy as np
+    import torch
+    from bravais_tpu_torch.cli.config5_all14 import build, max_rel_err
+    from bravais_tpu_torch.lattices import LATTICE_NAMES
+
+    launches, worst, above, tri = {}, {}, {}, {}
+    for engine in ("spectral", "field"):
+        total = {"h1 A": 0, "h1 AM": 0, "h1 M": 0, "jacobi": 0}
+        errs = {}
+        for name in LATTICE_NAMES:
+            t0 = time.perf_counter()
+            lat, kc, op, sweep = build(name, C5_N, C5_P, C5_NEV, C5_TOL,
+                                       C5_MAXITER, engine, dev)
+            setup = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            _c5_zero()
+            t0 = time.perf_counter()
+            res = sweep.run(kc)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = _c5_counts()
+            want = expected_c5_launches(res.iterations, engine)
+            err = max_rel_err(lat, kc, res.eigenvalues)
+            errs[lat.variant] = err
+            h1 = (f", h1 launches {got['h1 AM'] + got['h1 M']} (AM "
+                  f"{got['h1 AM']}, M {got['h1 M']}; the path's calls "
+                  f"{want['h1 AM'] + want['h1 M']})"
+                  if engine == "field" else "")
+            log("config5", f"{engine} {lat.variant}: {op.space.ndofs} dofs, "
+                f"max rel err {err:.3e}, iters/k {res.iterations.mean():.2f} "
+                f"{res.iterations.tolist()}, wall {wall:.3f} s (host refine "
+                f"{res.refine_s:.3f} s), setup {setup:.2f} s, Jacobi "
+                f"launches {got['jacobi']} (expected {want['jacobi']}){h1}")
+            if got != want:
+                raise RuntimeError(f"config5 {engine} {name}: launches {got}"
+                                   f" != the batch's calls {want}")
+            for key in total:
+                total[key] += got[key]
+            if name == "TRI":
+                tri[engine] = (kc, sweep, res, wall)
+        launches[engine] = total
+        worst[engine] = max(errs.values())
+        above[engine] = [v for v, e in errs.items() if e > 1e-6]
+        log("config5", f"{engine}: worst error {worst[engine]:.3e} over "
+            f"{len(errs)} lattices; above 1e-6: "
+            f"{', '.join(above[engine]) or 'none'}; launches {total}")
+    if not worst["spectral"] < C5_SPECTRAL_BAR:
+        raise RuntimeError(f"config5 spectral worst {worst['spectral']:.3e}"
+                           f" >= {C5_SPECTRAL_BAR}")
+    if not worst["field"] < C5_FIELD_BAR:
+        raise RuntimeError(f"config5 matrix-free worst {worst['field']:.3e} "
+                           f">= {C5_FIELD_BAR}")
+    # Batched against looped: the same solves one k at a time. The
+    # arithmetic is the same but not its rounding (cuBLAS and torch pick
+    # their GEMM and reduction splits by the batch's shape), so a k whose
+    # residual crosses the stop at the edge may take one iteration more
+    # or less: the gate allows ±1 and the line counts the k that match.
+    for engine, (kc, sweep, res, wall) in tri.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = sweep.run(kc, chunk=1)
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t0
+        rel = float(np.max(np.abs(one.eigenvalues - res.eigenvalues)
+                           / np.abs(res.eigenvalues)))
+        same = int(np.sum(one.iterations == res.iterations))
+        log("config5", f"TRI {engine}: batched iters {res.iterations.tolist()}"
+            f" wall {wall:.3f} s; chunk=1 iters {one.iterations.tolist()} "
+            f"wall {wall1:.3f} s; the same iterations at {same} of "
+            f"{len(kc)} k (the rest within ±1); bands max rel diff "
+            f"{rel:.3e} (<1e-6)")
+        if np.any(np.abs(one.iterations - res.iterations) > 1) \
+                or not rel < 1e-6:
+            raise RuntimeError(f"config5 TRI {engine}: chunk=1 differs from "
+                               f"the batched run")
+    return launches
+
+
 def phase_cli(dev):
     """Config 4's BCC half through the CLI, in a subprocess as a user
     starts it (``CLI_ARGS``), then again with ``--resume``. Gates: both
@@ -1279,7 +1462,8 @@ def main():
     setup4 = fcc_problem(dev)
     jac_err = max(jac_err, phase_jacobi_ltwin(dev, setup3[2]),
                   phase_jacobi_ltwin(dev, setup4[2]))
-    nd_err, h1_err = phase_elements(dev, setup3[2], rods, setup4[2])
+    op5 = config5_operator(dev)
+    nd_err, h1_err = phase_elements(dev, setup3[2], rods, setup4[2], op5)
     fcc_launches = phase_sweep(dev)
     diel, _ = phase_dielectric(dev, setup3)
     scalar, _ = phase_scalar(dev, scalar_setup(dev))
@@ -1291,10 +1475,11 @@ def main():
         dev, setup4, "its <5, 6> instantiation" if nd56
         else "the runtime-extent template")
     phase_cli(dev)
+    c5 = phase_config5(dev)
     # The profiler's phases come last, so that the launch-bound sweeps
     # run in a process it has not traced.
     phase_one_operation(dev, setup3[2], setup4[2])
-    times = kernel_times(dev, setup3[2], rods, op4=setup4[2])
+    times = kernel_times(dev, setup3[2], rods, op4=setup4[2], op5=op5)
     log_times(times)
     jac, nd_rec, h1_rec = (
         {"name": name, "route": "cuda",
@@ -1317,7 +1502,9 @@ def main():
     jac["launches_by_path"] = {
         "fcc_headline": fcc_launches, "config3_field": diel["jacobi"],
         "config1_scalar": scalar["jacobi"], "config2_rods2d": rods2d["jacobi"],
-        "te_air_holes": te["jacobi"], "fcc_field": fcc_field["jacobi"]}
+        "te_air_holes": te["jacobi"], "fcc_field": fcc_field["jacobi"],
+        "config5_spectral": c5["spectral"]["jacobi"],
+        "config5_field": c5["field"]["jacobi"]}
     jac["launches"] = sum(jac["launches_by_path"].values())
     nd_rec["launches_by_path"] = {
         path: {"M": got["nd M"], "AM": got["nd AM"], "A": got["nd A"]}
@@ -1329,9 +1516,11 @@ def main():
     h1_rec["launches_by_path"] = {
         "config3_field": diel["h1"],
         "config2_rods2d": {w: rods2d[f"h1 {w}"] for w in ("A", "AM", "M")},
-        "te_air_holes": {w: te[f"h1 {w}"] for w in ("A", "AM", "M")}}
+        "te_air_holes": {w: te[f"h1 {w}"] for w in ("A", "AM", "M")},
+        "config5_field": {w: c5["field"][f"h1 {w}"]
+                          for w in ("A", "AM", "M")}}
     h1_rec["launches"] = diel["h1"] + sum(
-        v for path in (rods2d, te) for key, v in path.items()
+        v for path in (rods2d, te, c5["field"]) for key, v in path.items()
         if key.startswith("h1"))
     print(json.dumps({"kernels": [jac, nd_rec, h1_rec]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -268,13 +268,26 @@ def test_plot_without_matplotlib_is_an_error(monkeypatch, capsys):
     assert "--plot needs matplotlib" in capsys.readouterr().err
 
 
-def test_f64_runs_on_the_cpu_and_says_so():
+def test_f64_runs_on_the_cpu_and_says_so(monkeypatch, capsys):
+    """--precision f64 runs on the CPU only when asked: without --device
+    cpu the CLI exits 2 with a message, card or no card (an entry point
+    never picks the CPU by itself); with it the run goes ahead and says
+    where it runs."""
+    argv = ["--lattice", "SQR", "--problem", "scalar", "--n", "4", "--p",
+            "1", "--nk", "4", "--nev", "2", "--precision", "f64"]
+    for card in (False, True):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: card)
+        with pytest.raises(SystemExit) as e:
+            bands_app.main(argv)
+        assert e.value.code == 2
+        assert ("--precision f64 runs on the CPU: pass --device cpu"
+                in capsys.readouterr().err)
     lines = []
     cfg = RunConfig(lattice="SQR", problem="scalar", n=4, p=1, nk=4, nev=2,
-                    precision="f64")
+                    precision="f64", device="cpu")
     bands_app.run(cfg, log=lines.append)
     assert bands_app.resolve_device(cfg) == "cpu"
-    assert lines[0].endswith("f64 on cpu (f64 runs on the CPU)")
+    assert lines[0].endswith("f64 on cpu")
     assert lines[-1].startswith("# done: wall")
 
 
@@ -303,7 +316,8 @@ def test_run_dirs_load_across_packages(tmp_path):
 def test_run_matches_reference_tm_rods(tmp_path):
     kw = dict(lattice="SQR", problem="tm", eps_in=8.9, radius=0.2, n=4,
               p=2, nk=4, nev=4, precision="f64")
-    w = bands_app.run(RunConfig(out=str(tmp_path / "port"), **kw),
+    w = bands_app.run(RunConfig(out=str(tmp_path / "port"), device="cpu",
+                                **kw),
                       log=lambda s: None)
     w_ref = run_ref(RunConfigRef(out=str(tmp_path / "ref"), **kw),
                     log=lambda s: None)

@@ -266,6 +266,80 @@ def test_h1_kernel_shapes_match_plain(cuda, lat, shape, p, kfrac, rows):
                 assert _rel(a, b) < 2e-5, want
 
 
+def _kfrac_table(nk, d, seed=6):
+    """nk fractional k-points whose components all differ."""
+    return np.random.default_rng(seed).uniform(0.05, 0.45, (nk, d))
+
+
+@pytest.mark.parametrize("lat,shape,p,nk,rows", [
+    ("TRI", (6, 6, 6), 4, 8, 10), ("TRI", (6, 6, 6), 4, 8, 2),
+    ("CUB", (6, 6, 6), 3, 8, 2), ("SQR", (16, 16), 3, 5, 3)])
+def test_h1_kernel_k_table_matches_plain(cuda, lat, shape, p, nk, rows):
+    """One launch with a table of nk distinct k-points on nk groups of
+    ``rows`` rows (config 5's (l, q) = (5, 6) at its 10 rows a k, and the
+    config-3 and config-2 shapes) equals the plain version with the same
+    table, every half; a wrong row-group map would put one k's phase on
+    another k's rows."""
+    from bravais_tpu_torch.cli.config5_all14 import PARAMS
+    lattice = make_lattice(lat, **PARAMS.get(lat, {}))
+    sp = H1Space.make(PeriodicGrid.make(lattice, shape), p)
+    c = h1_apply.H1Consts.from_space(sp, np.ones(1), np.ones(1), cuda)
+    kt = np.asarray([lattice.k_cart(f) for f in _kfrac_table(nk, sp.dim)],
+                    np.float32)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    ue = torch.randn((nk * rows * c.nelem,) + (c.l,) * c.d, generator=gen,
+                     dtype=torch.complex64, device=cuda)
+    for want in ("AM", "A", "M"):
+        before = h1_apply.launches
+        out = h1_apply.helmholtz_apply(ue, c, kt, want)
+        assert h1_apply.launches == before + 1
+        ref = h1_apply.helmholtz_apply_plain(ue, c, kt, want)
+        for a, b in zip(out, ref):
+            if b is not None:
+                assert _rel(a, b) < 2e-5, want
+
+
+def test_h1_kernel_splits_a_large_k_table(cuda):
+    """A table of MAX_K·2 + 3 k-points goes out in three launches and
+    equals the plain version."""
+    lattice = make_lattice("FCC")
+    sp = H1Space.make(PeriodicGrid.make(lattice, (2, 2, 2)), 2)
+    c = h1_apply.H1Consts.from_space(sp, np.ones(1), np.ones(1), cuda)
+    nk = 2 * h1_apply.MAX_K + 3
+    kt = np.asarray([lattice.k_cart(f) for f in _kfrac_table(nk, 3)],
+                    np.float32)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    ue = torch.randn((nk * 2 * c.nelem,) + (c.l,) * c.d, generator=gen,
+                     dtype=torch.complex64, device=cuda)
+    before = h1_apply.launches
+    y, m = h1_apply.helmholtz_apply(ue, c, kt, "AM")
+    assert h1_apply.launches == before + 3
+    y_pl, m_pl = h1_apply.helmholtz_apply_plain(ue, c, kt, "AM")
+    assert _rel(y, y_pl) < 2e-5 and _rel(m, m_pl) < 2e-5
+
+
+@pytest.mark.parametrize("engine", ["field", "spectral"])
+def test_batched_run_on_cuda_matches_cpu(cuda, engine):
+    """Config 5 cut to TRI n=3 p=2, the 8 k of KFRAC in one batched
+    ``run`` on the card and on the CPU: the same iterations per k (±1)
+    and refined bands within 1e-6 relative; on the card every k-batched
+    h1 apply is one launch."""
+    from bravais_tpu_torch.cli.config5_all14 import build
+    out = {}
+    for dev in ("cpu", cuda):
+        _, kc, op, sweep = build("TRI", 3, 2, 4, 1e-6, 300, engine, dev)
+        before = h1_apply.launches
+        out[str(dev)] = sweep.run(kc), h1_apply.launches - before
+    (rc, _), (rg, launched) = out["cpu"], out[str(cuda)]
+    np.testing.assert_allclose(rg.eigenvalues, rc.eigenvalues, rtol=1e-6)
+    assert np.all(np.abs(rg.iterations - rc.iterations) <= 1)
+    if engine == "field":
+        # start whitening (M), one fused (A, M) per iteration and two per
+        # 16-iteration segment: one launch each for all 8 k
+        its = int(rg.iterations.max())
+        assert launched == 1 + its + 2 * -(-its // 16)
+
+
 def test_element_kernels_refuse_other_inputs(cuda):
     c = _sphere_op(3, 2, cuda).nd_consts()
     bad = torch.zeros((c.nelem, c.ndof), dtype=torch.complex128,

@@ -192,3 +192,67 @@ def test_kernel_plan_model_matches_plain(lat, shape, p, kfrac):
         assert flops <= unshared
         if d == 3 and "A" in want:
             assert flops < unshared
+
+
+def _pallas_fn(sp, a64, b64, E, rows):
+    """The JAX kernel (interpret mode) on ``rows`` block rows of ``E``
+    elements, jitted once with k traced: ue ↦ (y, m) at k."""
+    import jax
+    d = sp.dim
+    perm = [2 * i for i in range(d)] + [2 * i + 1 for i in range(d)]
+
+    def plane(a):
+        e = a.transpose(perm).reshape(E, -1).astype(np.float32)
+        return jnp.asarray(np.tile(e, (rows, 1)).T)
+
+    f = jax.jit(lambda ur, ui, k: helmholtz_block_apply(
+        ur, ui, plane(a64), plane(b64), k, B=sp.basis.B.astype(np.float32),
+        D=sp.basis.D.astype(np.float32), JinvT=sp.grid.Jinv.T.tolist(),
+        Jinv=sp.grid.Jinv.tolist(),
+        wq=sp.quad_weight().ravel().astype(np.float32), interpret=True))
+
+    def apply(ue, k):
+        fm = ue.reshape(rows * E, -1).T
+        yr, yi, mr, mi = (np.asarray(o) for o in f(
+            jnp.asarray(fm.real), jnp.asarray(fm.imag), jnp.asarray(k)))
+        return ((yr + 1j * yi).T.reshape(ue.shape),
+                (mr + 1j * mi).T.reshape(ue.shape))
+    return apply
+
+
+@pytest.mark.parametrize("lat,shape,p,pallas", [
+    ("TRI", (2, 2, 2), 4, True), ("HEX2D", (3, 4), 3, False)])
+def test_plain_k_table_matches_per_k_calls(lat, shape, p, pallas):
+    """A table of 3 k-points, each component different, on 3 groups of
+    ``ROWS`` rows: element-row b of the table call is the per-k call at
+    k[(b // nelem) // rows_per_k] (the kernel's index map), for every
+    half; in 3D at config 5's (l, q) = (5, 6) each group also equals the
+    JAX kernel (interpret mode) at its k."""
+    from bravais_tpu_torch.cli.config5_all14 import PARAMS
+    lattice = make_lattice(lat, **PARAMS.get(lat, {}))
+    sp = H1Space.make(PeriodicGrid.make(lattice, shape), p)
+    d = sp.dim
+    xq = sp.qpoints_phys()
+    a64, b64 = eval_coefficient(_alpha, xq), eval_coefficient(_beta, xq)
+    c = H1Consts.from_space(sp, a64, b64, "cpu")
+    fr = np.array([[0.21, 0.13, 0.17], [0.11, 0.31, 0.07],
+                   [0.41, 0.23, 0.11]])[:, :d]
+    kt = np.asarray([lattice.k_cart(f) for f in fr], np.float32)
+    nk, E = len(kt), c.nelem
+    ue = _cplx(np.random.default_rng(4), (nk * ROWS * E,) + (c.l,) * d)
+    kidx = (np.arange(ue.shape[0]) // E) // ROWS        # the kernel's map
+    pal = _pallas_fn(sp, a64, b64, E, ROWS) if pallas else None
+    for want in ("AM", "A", "M"):
+        out = helmholtz_apply_plain(torch.as_tensor(ue), c, kt, want)
+        for j, k in enumerate(kt):
+            sel = kidx == j
+            ref = helmholtz_apply_plain(torch.as_tensor(ue[sel]), c, k, want)
+            for a, b in zip(out, ref):
+                if b is not None:
+                    assert _rel(a.numpy()[sel], b.numpy()) < 1e-6, (want, j)
+            if pallas and want == "AM":
+                y_p, m_p = pal(ue[sel], k)
+                assert _rel(out[0].numpy()[sel], y_p) < TOL, j
+                assert _rel(out[1].numpy()[sel], m_p) < TOL, j
+    assert work(nk * ROWS * E, c, kt, "AM") == work(nk * ROWS * E, c,
+                                                    kt[0], "AM")

@@ -105,6 +105,7 @@ def test_import_keeps_jax_out():
     code = ("import sys, bravais_tpu_torch, bravais_tpu_torch.convert, "
             "bravais_tpu_torch.bands.sweep, bravais_tpu_torch.bands.io, "
             "bravais_tpu_torch.cli.config, bravais_tpu_torch.cli.bands_app, "
+            "bravais_tpu_torch.cli.config5_all14, "
             "bravais_tpu_torch.operators.coefficients, "
             "bravais_tpu_torch.operators.curlcurl, "
             "bravais_tpu_torch.operators.qplaplace, "
