@@ -18,21 +18,23 @@ Jacobi or geometric-multigrid preconditioner. The refine:
   nev+2 rows.
 
 ``run_warm`` starts each k from the previous k's eigenvector block (which
-stays on the device); ``run`` starts every k from the seeded start block.
-``run`` solves a chunk of k-points as ONE k-batched solve (a LOBPCG with
-a leading k axis, as the reference vmaps a chunk) where the solve
-supports it: an engine ``solve_fn`` with ``batched = True`` (the scalar
-spectral engine, ``BlochHelmholtz.make_solve_fn``), and the built-in
-solve on a ``BlochHelmholtz`` with the Jacobi preconditioner or none.
-Every other solve (the Maxwell spectral and field engines, the built-in
-solve with geometric multigrid or on a ``BlochCurlCurl``) loops over the
-chunk's k-points one after the other. Each k of a chunk is then refined
-on the host. With a ``writer`` (``bands.io.BandWriter``) each finished k
-(``run_warm``) or chunk (``run``) is on disk at once, so a killed sweep
-resumes where it stopped.
+stays on the device); ``run`` starts every k from the seeded start block
+and solves a chunk of k-points as ONE k-batched solve, a LOBPCG with a
+leading k axis (as the reference vmaps a chunk): every engine's
+``solve_fn`` takes a k table (nk, d) (``solve.batched``: the scalar and
+Maxwell spectral engines, the Maxwell field engine with either
+deflation), and so does the built-in solve with any preconditioner (the
+Jacobi diagonal per k, the geometric-multigrid V-cycle with a k table, a
+caller's preconditioner given the k table) on a ``BlochHelmholtz`` or a
+``BlochCurlCurl``. The k of a chunk step in lockstep and a k that is done
+is frozen (``chunk=1`` solves the k one at a time). Each k of a chunk is
+then refined on the host. With a ``writer`` (``bands.io.BandWriter``) each
+finished k (``run_warm``) or chunk (``run``) is on disk at once, so a
+killed sweep resumes where it stopped.
 
 The reference overlaps the host refine of k (or of a chunk) with the
-device solve of the next; this host-driven loop runs them one after the
+device solve of the next (``bravais_tpu/bands/sweep.py`` ``run`` and
+``run_warm``); this host-driven loop still runs them one after the
 other. The chain/segment modes, the sharded sweeps and the near-Γ loose
 stop are not ported.
 """
@@ -102,7 +104,9 @@ class BandSweep:
     precond    : the built-in solve's preconditioner: "auto" (geometric
                  multigrid for a ``BlochHelmholtz`` whose coefficients
                  vary between elements, Jacobi otherwise), "jacobi",
-                 "gmg", None, or a callable k ↦ block preconditioner.
+                 "gmg", None, or a callable k ↦ block preconditioner
+                 (``run`` calls it with a k table (nk, d), and its
+                 preconditioner takes (nk, rows, *dof) blocks).
     seed       : numpy seed of the start block.
     keep_vectors : return each k's eigenvector rows in
                  ``SweepResult.eigenvectors`` (for mode dumps).
@@ -154,51 +158,46 @@ class BandSweep:
         self.precond_mode = pre
 
     def _make_precond(self, k):
+        """The resolved preconditioner at k, or at a k table (nk, d) on
+        k-batched blocks (nk, rows, *dof): Jacobi with one diagonal per
+        k, the V-cycle with the table, or the caller's callable given the
+        table."""
         pre = self.precond_mode
         if pre == "gmg":
             return self.gmg.precond(k)
         if pre == "jacobi":
-            return jacobi(self.op.diag_A(k))
+            return jacobi(self.op.diag_A(k), batched=np.ndim(k) == 2)
         if callable(pre):
             return pre(k)
         return None
 
     def _solve(self, X0, k, nev, tol, maxiter):
         """The built-in solve: LOBPCG on (A(k), M) with the fused (A, M)
-        element apply and the resolved preconditioner; no block support."""
+        element apply and the resolved preconditioner; no block support.
+        At a k table (nk, d) one k-batched LOBPCG from X0 (m, *dof),
+        shared by every k."""
         op = self.op
+        batched = np.ndim(k) == 2
+        if batched:
+            X0 = X0.expand((len(k),) + tuple(X0.shape))
         # M gets k too: a BlochCurlCurl mass wraps with the Bloch phases.
         return lobpcg(lambda x: op.apply_A(x, k), lambda x: op.apply_M(x, k),
                       X0, nev, maxiter=maxiter, tol=tol,
                       precond=self._make_precond(k),
                       AM=lambda x: op.apply_AM(x, k),
-                      rr_tol=PROD_RR_TOL), None
+                      rr_tol=PROD_RR_TOL, batched=batched), None
 
-    def _batched_solve(self) -> Optional[Callable]:
-        """The solve ``run`` gives a whole chunk of k at once, or None
-        where it loops over k: a ``solve_fn`` with ``batched = True``, or
-        the built-in solve on a ``BlochHelmholtz`` with Jacobi or no
-        preconditioner."""
-        if getattr(self.solve_fn, "batched", False):
-            return self.solve_fn
-        from bravais_tpu_torch.operators.helmholtz import BlochHelmholtz
-        if (self.builtin and isinstance(self.op, BlochHelmholtz)
-                and self.precond_mode in ("jacobi", None)):
-            return self._solve_batched
-        return None
-
-    def _solve_batched(self, X0, ks, nev, tol, maxiter):
-        """The built-in solve of a k table ks (nk, d) as one k-batched
-        LOBPCG from the start block X0 (m, *N), shared by every k; the
-        Jacobi preconditioner takes one diagonal per k."""
-        op = self.op
-        pre = (jacobi(op.diag_A(ks), batched=True)
-               if self.precond_mode == "jacobi" else None)
-        return lobpcg(lambda x: op.apply_A(x, ks), op.apply_M,
-                      X0.expand((len(ks),) + tuple(X0.shape)), nev,
-                      maxiter=maxiter, tol=tol, precond=pre,
-                      AM=lambda x: op.apply_AM(x, ks), rr_tol=PROD_RR_TOL,
-                      batched=True), None
+    def _batched_solve(self) -> Callable:
+        """The solve ``run`` gives a whole chunk of k at once: the built-in
+        solve or an engine's ``solve_fn`` (each sets ``batched = True``);
+        raises for a ``solve_fn`` that takes one k only."""
+        if self.builtin:
+            return self._solve
+        if not getattr(self.solve_fn, "batched", False):
+            raise ValueError("run solves a chunk of k-points at once: its "
+                             "solve_fn must take a k table (nk, d) and set "
+                             "batched = True (run_warm takes one k a solve)")
+        return self.solve_fn
 
     def _x0(self) -> torch.Tensor:
         """Start block from ``np.random.default_rng(seed)``, drawn as the
@@ -304,9 +303,8 @@ class BandSweep:
             ) -> SweepResult:
         """Cold sweep: every k solved from the seeded start block, in
         chunks of ``chunk`` k-points (default all). A chunk is one
-        k-batched solve where the solve supports it (module docstring),
-        else its k-points run one after the other; each k is then
-        refined on the host. With ``writer``, each finished chunk is
+        k-batched solve (module docstring); each k is then refined on the
+        host. With ``writer``, each finished chunk is
         written at once under the global indices ``k_index`` (default
         0..nk-1)."""
         k_cart = self._rounded(k_cart)
@@ -318,19 +316,11 @@ class BandSweep:
         t0 = time.perf_counter()
         for s in range(0, nk, chunk):
             ks = k_cart[s:s + chunk]
-            if bsolve is not None:
-                r, support = bsolve(X0, ks, self.nev, self.tol, self.maxiter)
-                part = [self._refined(r, support, r.eigenvectors[j], k, j)
-                        for j, k in enumerate(ks)]
-                if vecs is not None:
-                    vecs.extend(r.eigenvectors[:, :self.nev].cpu().numpy())
-            else:
-                part = []
-                for k in ks:
-                    *row, X = self._solve_refined(X0, k)
-                    part.append(row)
-                    if vecs is not None:
-                        vecs.append(X[:self.nev].cpu().numpy())
+            r, support = bsolve(X0, ks, self.nev, self.tol, self.maxiter)
+            part = [self._refined(r, support, r.eigenvectors[j], k, j)
+                    for j, k in enumerate(ks)]
+            if vecs is not None:
+                vecs.extend(r.eigenvectors[:, :self.nev].cpu().numpy())
             rows.extend(part)
             if writer is not None:
                 gidx = (k_index[s:s + len(part)] if k_index is not None

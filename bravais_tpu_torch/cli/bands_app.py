@@ -6,7 +6,12 @@
 
 Wires config -> lattice -> mesh -> operator -> k-sweep -> band table
 (+ checkpoint/resume, one JSON line per k, optional plot and mode
-dumps). Runs on the CUDA device unless ``--device cpu`` is given;
+dumps). ``--mode warm`` (the default) solves the k-points one after the
+other, each from the last; ``--mode batched`` solves them all as one
+k-batched solve (``BandSweep.run``) on every engine: the scalar and
+Maxwell spectral engines, the Maxwell field engine and the built-in
+solve with GMG or Jacobi. Runs on the CUDA device unless ``--device
+cpu`` is given;
 without a card it exits with an error instead of falling back to the
 CPU. ``--precision f64`` runs only on the CPU and needs ``--device cpu``
 (the entry point never picks the CPU by itself). What the port

@@ -15,8 +15,13 @@ structured periodic grid:
 * coarsest level: ``COARSE_SWEEPS`` Chebyshev sweeps.
 
 Where the reference vmapped a single-field V-cycle, this one acts on
-whole blocks (rows, *dof_shape). The Chebyshev scalars are computed in
-the working precision, as the reference's traced scalars are.
+whole blocks (rows, *dof_shape), and with a k table (nk, d) on k-batched
+blocks (nk, rows, *dof_shape): each level's diagonal per k, each level
+apply one h1 launch with the table, the transfers over the nk·rows rows
+(what the reference's vmap over a chunk of k computes). λmax and the
+Chebyshev scalars come from k = 0 and are shared by every k; they are
+computed in the working precision, as the reference's traced scalars
+are.
 ``QPGMG`` (the quasi-periodic variant) is not ported: its only caller is
 the reference's ``gmg`` deflation.
 """
@@ -120,6 +125,9 @@ class GMG:
         """coarse level i+1 → fine level i (values: assign semantics)."""
         coarse = self.levels[i + 1].op.space
         d = coarse.dim
+        if u.ndim == d + 2:                 # k-batched: fold k into rows
+            return self._prolong(i, u.flatten(0, 1)).unflatten(
+                0, u.shape[:2])
         tab = self._ptabs[i]
         nf = tab.shape[0]
         n = coarse.grid.shape
@@ -137,6 +145,9 @@ class GMG:
         """fine level i → coarse level i+1 (residuals: the adjoint)."""
         coarse = self.levels[i + 1].op.space
         d = coarse.dim
+        if r.ndim == d + 2:                 # k-batched: fold k into rows
+            return self._restrict(i, r.flatten(0, 1)).unflatten(
+                0, r.shape[:2])
         tab = self._ptabs[i]
         nf = tab.shape[0]
         n = coarse.grid.shape
@@ -193,8 +204,12 @@ class GMG:
 
     def precond(self, k) -> Callable:
         """The V-cycle preconditioner W = V(k) R on blocks (rows,
-        *dof_shape); the levels' diagonals at k are formed once here."""
+        *dof_shape), or on k-batched blocks (nk, rows, *dof_shape) for a
+        k table (nk, d); the levels' diagonals at k ((nk, 1, *N) for a
+        table) are formed once here."""
         dk = [torch.clamp(lv.op.diag_A(k), min=1e-30) for lv in self.levels]
+        if np.ndim(k) == 2:
+            dk = [d.unsqueeze(1) for d in dk]
 
         def apply(R):
             return self._vcycle(0, k, dk, R.to(self.levels[0].op.dtype))

@@ -143,6 +143,18 @@ def _whiten_chol(G, eps):
 
 
 def _gram(U, V):
+    """G[..., i, j] = ⟨u_i, v_j⟩ for row blocks U, V (..., n, N). With a
+    leading k axis a complex64 Gram is formed in complex128 and rounded
+    back. A float32 GEMM's accumulation order follows the batch shape
+    (cuBLAS picks its kernel and split by it), and LOBPCG's whitening
+    amplifies the difference once the residuals near their floor: on the
+    H100 config 3's k 15 took 15 iterations in a batch of 16 k and 13
+    alone, and a one-pass strided-batched GEMM over config 4's 98,304
+    columns raised its nudged Γ's float32 floor 4–5× (32 iterations
+    against 18 alone). In complex128 both take what they take alone."""
+    if U.ndim > 2 and U.dtype == torch.complex64:
+        w = torch.complex128
+        return (U.to(w).conj() @ V.to(w).mT).to(U.dtype)
     return U.conj() @ V.mT
 
 
@@ -243,7 +255,7 @@ def lobpcg(A: Callable, M: Optional[Callable], X0: torch.Tensor, nev: int,
 
         W = Pf(R) if Pf is not None else R
         # M-project out span(X):  w_i -= Σ_j ⟨x_j, M w_i⟩ x_j.
-        W = W - (W.conj() @ MX.mT).conj() @ X
+        W = W - _gram(W, MX).conj() @ X
         # Soft locking: zero converged rows of W and P.
         mask = (~conv)[..., None].to(rdtype)
         W = W * mask

@@ -52,7 +52,7 @@ from bravais_tpu_torch.spaces import tensor_np as tensor
 from bravais_tpu_torch.spaces.h1 import H1Space
 from bravais_tpu_torch.spaces.nedelec import NedelecSpace
 
-__all__ = ["BlochCurlCurl"]
+__all__ = ["BlochCurlCurl", "projector_factor"]
 
 _CYC = ((0, 1, 2), (1, 2, 0), (2, 0, 1))  # (r, s, t) cyclic triples
 
@@ -255,12 +255,16 @@ class BlochCurlCurl:
     # -- device applies (field engine) ----------------------------------------
 
     def phases(self, k) -> torch.Tensor:
-        """φ_i = e^{i k·a_i} for the three primitive directions,
-        computed in the working precision on the device."""
-        ka = (torch.as_tensor(self.A_rows, dtype=self.rdtype,
-                              device=self.device)
-              @ torch.as_tensor(np.asarray(k, np.float64),
-                                dtype=self.rdtype, device=self.device))
+        """φ_i = e^{i k·a_i} for the three primitive directions, computed
+        in the working precision on the device: (3,) at one k, (nk, 3)
+        for a k table (nk, 3). Per-k phases make every device apply
+        k-batched: it takes blocks (nk, rows, ...) and runs the nk·rows
+        rows through one element kernel launch."""
+        A = torch.as_tensor(self.A_rows, dtype=self.rdtype,
+                            device=self.device)
+        kt = torch.as_tensor(np.asarray(k, np.float64), dtype=self.rdtype,
+                             device=self.device)
+        ka = A @ kt if kt.ndim == 1 else kt @ A.mT
         return torch.polar(torch.ones_like(ka), ka)
 
     def nd_consts(self) -> NdConsts:
@@ -289,7 +293,7 @@ class BlochCurlCurl:
                     s = g.shape
                     g = g.reshape(*s[:ax + 1], n[i], sp.p, *s[ax + 2:])
                 else:
-                    g = dtensor.gather_axis(g, ax, n[i], sp.p, ph[i])
+                    g = dtensor.gather_axis(g, ax, n[i], sp.p, ph[..., i])
             out[:, c * nc:(c + 1) * nc].view((R,) + n + ext).copy_(
                 g.permute(0, 1, 3, 5, 2, 4, 6))
         return out
@@ -310,23 +314,45 @@ class BlochCurlCurl:
                     s = g.shape
                     g = g.reshape(*s[:ax + 1], n[i] * sp.p, *s[ax + 3:])
                 else:
-                    g = dtensor.scatter_add_axis(g, ax, n[i], sp.p, ph[i])
+                    g = dtensor.scatter_add_axis(g, ax, n[i], sp.p,
+                                                 ph[..., i])
             outs.append(g)
         return torch.stack(outs, dim=1)
 
+    @staticmethod
+    def _rows(u, ph, ndof):
+        """(u with its rows flat, the leading shape to restore): a
+        k-batched block (nk, rows, *dof) (``ndof`` dof axes) becomes
+        (nk·rows, *dof), the nk row groups that per-k phases ``ph``
+        (nk, 3) wrap; an unbatched block passes as is."""
+        if ph.ndim == 1:
+            return u, None
+        if u.ndim != ndof + 2 or u.shape[0] != ph.shape[0]:
+            raise ValueError(f"a k table of {ph.shape[0]} k takes blocks "
+                             f"(nk, rows, ...) with nk = {ph.shape[0]}, got "
+                             f"{tuple(u.shape)}")
+        return u.reshape((-1,) + tuple(u.shape[2:])), tuple(u.shape[:2])
+
     def _apply_nd(self, u, k, ph, want):
         """Gather → element-major → the Nédélec kernel → scatter; returns
-        the wanted outputs ("AM": (A u, M u))."""
+        the wanted outputs ("AM": (A u, M u)). With per-k phases the
+        block is (nk, rows, 3, N₁, N₂, N₃) and its nk·rows rows go through
+        one kernel launch (the element apply does not depend on k)."""
         if ph is None:
             ph = self.phases(k)
+        u, lead = self._rows(u, ph, 4)
         ue = self._gather_stacked(u.to(self.dtype), ph)
-        outs = nedelec_apply(ue, self.nd_consts(), want)
-        return tuple(self._scatter_stacked(t, ph)
-                     for t in outs if t is not None)
+        outs = [self._scatter_stacked(t, ph)
+                for t in nedelec_apply(ue, self.nd_consts(), want)
+                if t is not None]
+        return tuple(t if lead is None else t.reshape(lead + t.shape[1:])
+                     for t in outs)
 
     def apply_A(self, u: torch.Tensor, k=None, *, ph=None) -> torch.Tensor:
         """A(k) u for a block u (rows, 3, N₁, N₂, N₃); pass ``k`` or the
-        precomputed phases ``ph``."""
+        precomputed phases ``ph``. With a k table (nk, 3) (or its phases
+        (nk, 3)) the block is (nk, rows, 3, N₁, N₂, N₃), one k per row
+        group; so for every apply below."""
         return self._apply_nd(u, k, ph, "A")[0]
 
     def apply_M(self, u: torch.Tensor, k=None, *, ph=None) -> torch.Tensor:
@@ -344,17 +370,19 @@ class BlochCurlCurl:
         sp = self.space
         if ph is None:
             ph = self.phases(k)
-        phi = phi.to(self.dtype)
+        phi, lead = self._rows(phi.to(self.dtype), ph, 3)
         Dn = torch.as_tensor(sp.Dnode, dtype=self.dtype, device=phi.device)
         out = []
         for c in range(3):
-            g = dtensor.gather_axis(phi, c, sp.grid.shape[c], sp.p, ph[c])
+            g = dtensor.gather_axis(phi, c, sp.grid.shape[c], sp.p,
+                                    ph[..., c])
             d = torch.movedim(torch.tensordot(Dn, g, dims=([1], [c + 2])),
                               0, c + 2)
             s = d.shape
             out.append(d.reshape(*s[:c + 1], sp.grid.shape[c] * sp.p,
                                  *s[c + 3:]))
-        return torch.stack(out, dim=1)
+        out = torch.stack(out, dim=1)
+        return out if lead is None else out.reshape(lead + out.shape[1:])
 
     def apply_GkH(self, u: torch.Tensor, k=None, *, ph=None
                   ) -> torch.Tensor:
@@ -363,7 +391,7 @@ class BlochCurlCurl:
         sp = self.space
         if ph is None:
             ph = self.phases(k)
-        u = u.to(self.dtype)
+        u, lead = self._rows(u.to(self.dtype), ph, 4)
         Dn = torch.as_tensor(sp.Dnode, dtype=self.dtype, device=u.device)
         acc = 0.0
         for c in range(3):
@@ -373,8 +401,8 @@ class BlochCurlCurl:
             d = torch.movedim(torch.tensordot(Dn, r, dims=([0], [c + 2])),
                               0, c + 2)
             acc = acc + dtensor.scatter_add_axis(d, c, sp.grid.shape[c],
-                                                 sp.p, ph[c])
-        return acc
+                                                 sp.p, ph[..., c])
+        return acc if lead is None else acc.reshape(lead + acc.shape[1:])
 
     # -- stencils (twisted-DFT block factorization) ---------------------------
 
@@ -578,9 +606,10 @@ class BlochCurlCurl:
         L = GᴴM_εG with the mean-ε fast-diagonal solve as preconditioner:
         a fixed polynomial that contracts the kernel component at any
         contrast and whose output lies in range(G), so it only ever moves
-        the gradient component. ``u``: block (rows, 3, N₁, N₂, N₃);
-        ``lsolve``: the mean-ε L-twin solver at k (built if not given);
-        ``steps``: default ``cheby_steps()``."""
+        the gradient component. ``u``: block (rows, 3, N₁, N₂, N₃), or
+        (nk, rows, 3, N₁, N₂, N₃) with a k table; ``lsolve``: the mean-ε
+        L-twin solver at k (built if not given); ``steps``: default
+        ``cheby_steps()``."""
         a, b = self.cheby_bounds()
         if ph is None:
             ph = self.phases(k)
@@ -633,7 +662,14 @@ class BlochCurlCurl:
         ported.
 
         Returns ``solve(X0, k, nev, tol, maxiter)`` → (LobpcgResult with
-        eigenvector block (m, 3, N₁, N₂, N₃), None)."""
+        eigenvector block (m, 3, N₁, N₂, N₃), None). With a k table
+        (nk, 3) it solves every k at once (``solve.batched``): per-k
+        phases, one (A + sM)⁻¹ and one L-twin factorization for all k
+        (the L-twin eigh one Jacobi launch on (nk·B, D, D)), the start
+        block X0 shared and deflated per k, and a k-batched LOBPCG whose
+        every element apply is one launch for the nk·rows rows; every
+        output then has a leading k axis. The Chebyshev bounds and steps
+        do not depend on k and are shared."""
         from bravais_tpu_torch.eigen.lobpcg import (PROD_RR_TOL,
                                                     engine_scale_floor,
                                                     lobpcg)
@@ -675,14 +711,19 @@ class BlochCurlCurl:
                 z = pc(R)
                 return z - proj(z)
 
+            batched = np.ndim(k) == 2
             X0 = X0.to(self.dtype)
+            if batched:
+                X0 = X0.expand((len(k),) + tuple(X0.shape))
             return lobpcg(lambda x: self.apply_A(x, ph=ph),
                           lambda x: self.apply_M(x, ph=ph),
                           X0 - proj(X0), nev, maxiter=maxiter, tol=tol,
                           precond=pcond, scale_floor=sfloor,
                           AM=lambda x: self.apply_AM(x, ph=ph),
-                          kernel_project=proj, rr_tol=PROD_RR_TOL), None
+                          kernel_project=proj, rr_tol=PROD_RR_TOL,
+                          batched=batched), None
 
+        solve.batched = True
         return solve
 
     # -- diagonals (k-independent: |phase| = 1) -------------------------------
@@ -690,8 +731,10 @@ class BlochCurlCurl:
     def diag_A(self, k=None) -> torch.Tensor:
         """Real diagonal of A(k) (3, N₁, N₂, N₃) on the device, for the
         Jacobi preconditioner; the phases have modulus 1, so it does not
-        depend on k."""
-        return torch.as_tensor(self._diagonals()[0], device=self.device)
+        depend on k. For a k table (nk, 3): the same diagonal expanded to
+        (nk, 3, N₁, N₂, N₃)."""
+        d = torch.as_tensor(self._diagonals()[0], device=self.device)
+        return d if np.ndim(k) < 2 else d.expand((len(k),) + d.shape)
 
     @property
     def diag_M(self) -> np.ndarray:
@@ -835,8 +878,12 @@ class BlochCurlCurl:
         ``PROD_RR_TOL``.
 
         Returns ``solve(X0, k, nev, tol, maxiter)`` → (LobpcgResult with
-        field eigenvectors (m, 3, N₁, N₂, N₃), support (m, B));
-        ``solve.refine_np`` is the matching host refine.
+        field eigenvectors (m, 3, N₁, N₂, N₃), support (m, B)). With a k
+        table (nk, 3) it solves every k at once (``solve.batched``): the
+        blocks, factors and projector (nk, B, ...), the start block X0
+        (m, 3, N₁, N₂, N₃) shared, and a k-batched LOBPCG; every output
+        then has a leading k axis. ``solve.refine_np`` is the matching
+        host refine of one k.
         """
         from bravais_tpu_torch.eigen.lobpcg import (PROD_RR_TOL,
                                                     engine_scale_floor,
@@ -848,21 +895,20 @@ class BlochCurlCurl:
                              "make_solve_fn (the field engine)")
         sfloor = engine_scale_floor(self.dtype)
         s_ = self.default_fd_shift()
-        fi = torch.finfo(self.rdtype)
         self.fastdiag_G()  # host stencil extraction (A, M, G), cached
 
-        def cols(X):   # (L, B, D) rows → (B, D, L) block columns
-            return X.permute(1, 2, 0)
+        def cols(X):   # (..., L, B, D) rows → (..., B, D, L) block columns
+            return X.movedim(-3, -1)
 
         def rows(Y):
-            return Y.permute(2, 0, 1)
+            return Y.movedim(-1, -3)
 
         def solve(X0, k, nev, tol, maxiter):
             fd = self.fastdiag_G()
             F = fd._fwd_mats(fd._theta(k))
             TA = fd.blocks([("A", 1.0)], k)
             TM = fd.blocks([("M", 1.0)], k)
-            TG = fd.blocks([("G", 1.0)], k)          # (B, D, Dh1)
+            TG = fd.blocks([("G", 1.0)], k)          # ([nk,] B, D, Dh1)
             TGH = TG.mH
             # (A+sM)⁻¹ as the factor Yc = L⁻¹ (HPD: chol raises if not).
             Lc = torch.linalg.cholesky(TA + s_ * TM)
@@ -870,26 +916,9 @@ class BlochCurlCurl:
             Yc = torch.linalg.solve_triangular(
                 Lc, eyeD.expand(Lc.shape), upper=False)
             YcH = Yc.mH                               # adjoint view
-            # Projector factor: chol(L + δI), δ relative to the block
-            # trace; rows cholesky_ex flags as failed are zeroed, and every
-            # direction with a pivot at/below δ (the Γ harmonic) gets a
-            # huge pivot, which zeroes it in the solve instead of
-            # amplifying it by 1/δ.
-            Lb = TGH @ (TM @ TG)                      # (B, Dh1, Dh1)
-            nh = Lb.shape[-1]
-            trm = torch.diagonal(Lb, dim1=-2, dim2=-1).real.sum(-1) / nh
-            delta = 1e-7 * trm
-            eyeH = torch.eye(nh, dtype=self.dtype, device=self.device)
-            Rl, info = torch.linalg.cholesky_ex(Lb + delta[:, None, None]
-                                                * eyeH)
-            ridx = torch.arange(nh, device=self.device)
-            failed = (info[:, None] > 0) & (ridx[None, :] >= info[:, None] - 1)
-            Rl = torch.where(failed[..., None], 0.0, Rl)
-            dg = torch.diagonal(Rl, dim1=-2, dim2=-1).real
-            big = dg.max() / fi.eps
-            dfloor = torch.clamp(delta, min=fi.tiny)
-            tiny = (dg * dg) <= (2.0 * dfloor)[:, None]
-            Rl = Rl + torch.diag_embed((tiny * big).to(self.dtype))
+            # The exact gradient projector G L⁻¹ Gᴴ M through the factor
+            # of L + δI.
+            Rl = projector_factor(TM, TG, TGH)
             RlH = Rl.mH
 
             def proj_cols(xc):
@@ -905,18 +934,47 @@ class BlochCurlCurl:
                 zc = YcH @ (Yc @ cols(R))
                 return rows(zc - proj_cols(zc))
 
-            X0b = fd.to_blocks(X0, F)
+            X0b = fd.to_blocks(X0, F)                 # ([nk,] m, B, D)
             X0b = X0b - proj(X0b)
             res = lobpcg(lambda X: rows(TA @ cols(X)),
                          lambda X: rows(TM @ cols(X)), X0b, nev,
                          maxiter=maxiter, tol=tol, precond=pcond,
                          scale_floor=sfloor, kernel_project=proj,
-                         rr_tol=PROD_RR_TOL)
-            # Block support of each row: the tiny (m, B) array the host
-            # refine needs instead of the full eigenvector block.
+                         rr_tol=PROD_RR_TOL, batched=np.ndim(k) == 2)
+            # Block support of each row: the tiny ([nk,] m, B) array the
+            # host refine needs instead of the full eigenvector block.
             support = (res.eigenvectors.abs() ** 2).sum(dim=-1)
             Xf = fd.from_blocks(res.eigenvectors, F)
             return res._replace(eigenvectors=Xf), support
 
+        solve.provides_support = True
+        solve.batched = True
         solve.refine_np = self.spectral_refine_np
         return solve
+
+
+def projector_factor(TM: torch.Tensor, TG: torch.Tensor, TGH: torch.Tensor
+                     ) -> torch.Tensor:
+    """The spectral engine's gradient-projector factor: chol(L + δI) of
+    the blocks L = ĜᴴM̂Ĝ ((..., B, Dh1, Dh1), from TM (..., B, D, D), TG
+    (..., B, D, Dh1) and its adjoint TGH), δ = 1e-7 of each block's mean
+    diagonal. Rows ``cholesky_ex`` flags as failed are zeroed, and every
+    direction with a pivot at or below δ (the Γ harmonic) gets a huge
+    pivot, the largest diagonal entry over ``eps``, which zeroes it in
+    the solve instead of amplifying it by 1/δ. Every reduction is per k:
+    with a leading k axis the pivot is the largest of the k's own blocks,
+    as under the reference's vmap."""
+    fi = torch.finfo(TM.real.dtype)
+    Lb = TGH @ (TM @ TG)
+    nh = Lb.shape[-1]
+    trm = torch.diagonal(Lb, dim1=-2, dim2=-1).real.sum(-1) / nh
+    delta = 1e-7 * trm                                   # (..., B)
+    eyeH = torch.eye(nh, dtype=Lb.dtype, device=Lb.device)
+    Rl, info = torch.linalg.cholesky_ex(Lb + delta[..., None, None] * eyeH)
+    ridx = torch.arange(nh, device=Lb.device)
+    failed = (info[..., None] > 0) & (ridx >= info[..., None] - 1)
+    Rl = torch.where(failed[..., None], 0.0, Rl)
+    dg = torch.diagonal(Rl, dim1=-2, dim2=-1).real
+    big = dg.amax(dim=(-2, -1), keepdim=True) / fi.eps
+    tiny = (dg * dg) <= (2.0 * torch.clamp(delta, min=fi.tiny))[..., None]
+    return Rl + torch.diag_embed((tiny * big).to(Lb.dtype))

@@ -326,7 +326,9 @@ class FastDiag:
                method: str = "lu") -> Callable:
         """u ↦ (Σ coeff·Op)⁻¹ u on blocks of fields (rows, *field_shape):
         twisted DFT → batched block inverse-matvec → inverse DFT. Build
-        once per k, outside the LOBPCG loop.
+        once per k, outside the LOBPCG loop. With a k table (nk, d) it
+        solves k-batched blocks (nk, rows, *field_shape), one k per
+        block, from (nk, nblocks, D, D) blocks factored in one call.
 
         ``method``: "lu" — the batched dense inverse (``torch.linalg.inv``;
         right for the well-conditioned shifted (A + sM) preconditioner);
@@ -356,8 +358,8 @@ class FastDiag:
             raise ValueError(f"method must be 'lu' or 'eigh', got {method!r}")
 
         def solve(u):
-            v = self.to_blocks(u, F)                       # (L, B, D)
-            x = inv_cols(v.permute(1, 2, 0)).permute(2, 0, 1)
+            v = self.to_blocks(u, F)               # ([nk,] L, B, D)
+            x = inv_cols(v.movedim(-3, -1)).movedim(-1, -3)
             return self.from_blocks(x, F).reshape(u.shape)
 
         return solve

@@ -58,25 +58,39 @@ class QPLaplace:
         return self._consts
 
     def phases(self, k) -> torch.Tensor:
-        """φ_i = e^{i k·a_i}, computed in the working precision."""
-        ka = (torch.as_tensor(self.A_rows, dtype=self.rdtype,
-                              device=self.device)
-              @ torch.as_tensor(np.asarray(k, np.float64),
-                                dtype=self.rdtype, device=self.device))
+        """φ_i = e^{i k·a_i}, computed in the working precision: (d,) at
+        one k, (nk, d) for a k table (nk, d)."""
+        A = torch.as_tensor(self.A_rows, dtype=self.rdtype,
+                            device=self.device)
+        kt = torch.as_tensor(np.asarray(k, np.float64), dtype=self.rdtype,
+                             device=self.device)
+        ka = A @ kt if kt.ndim == 1 else kt @ A.mT
         return torch.polar(torch.ones_like(ka), ka)
 
     def apply_A(self, u: torch.Tensor, k=None, *, ph=None) -> torch.Tensor:
         """Λ(k) u for a block u (rows, N₁, ..., N_d); pass ``k`` or the
-        precomputed phases ``ph``."""
+        precomputed phases ``ph``. With a k table (or its phases (nk, d))
+        the block is (nk, rows, N₁, ..., N_d): the per-k phases wrap the
+        gather and the nk·rows rows go through one h1 launch at k = 0."""
         if ph is None:
             ph = self.phases(k)
-        k0 = [0.0] * self.space.dim
+        d = self.space.dim
+        lead = tuple(u.shape[:u.ndim - d])
+        if ph.ndim == 2 and (len(lead) != 2 or lead[0] != ph.shape[0]):
+            raise ValueError(f"a k table of {ph.shape[0]} k takes blocks "
+                             f"(nk, rows, *N) with nk = {ph.shape[0]}, got "
+                             f"{tuple(u.shape)}")
+        flat = u.reshape((-1,) + tuple(u.shape[len(lead):])).to(self.dtype)
+        phs = [ph[..., i] for i in range(d)]
+        k0 = [0.0] * d
         if self.shift:
-            y, m = apply_global(self.space, u.to(self.dtype), self.consts(),
-                                k0, "AM", ph)
-            return y + self.shift * m
-        return apply_global(self.space, u.to(self.dtype), self.consts(), k0,
-                            "A", ph)[0]
+            y, m = apply_global(self.space, flat, self.consts(), k0, "AM",
+                                phs)
+            y = y + self.shift * m
+        else:
+            y = apply_global(self.space, flat, self.consts(), k0, "A",
+                             phs)[0]
+        return y.reshape(u.shape)
 
     def diag_A(self, k=None) -> np.ndarray:
         """Real diagonal (N₁, ..., N_d), host; |phases| = 1, so it does

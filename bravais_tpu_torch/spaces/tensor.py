@@ -35,11 +35,23 @@ __all__ = ["gather", "scatter_add", "gather_axis", "scatter_add_axis",
            "gather_qp", "scatter_add_qp", "contract", "contract_t"]
 
 
+def _phased(x: torch.Tensor, phase: torch.Tensor) -> torch.Tensor:
+    """x times the wrap phase: a complex scalar tensor, or a per-k vector
+    (nk,) whose entries scale nk equal groups of x's rows (row group g
+    takes ``phase[g]``, the k-batched layout)."""
+    if not isinstance(phase, torch.Tensor) or phase.ndim == 0:
+        return x * phase
+    nk = phase.shape[0]
+    return (x.reshape((nk, -1) + x.shape[1:])
+            * phase.reshape((nk,) + (1,) * x.ndim)).reshape(x.shape)
+
+
 def gather_axis(u: torch.Tensor, axis: int, n: int, p: int, phase=None
                 ) -> torch.Tensor:
     """Closed gather along one axis: size n*p -> (n, p+1) at ``axis``.
-    ``phase`` (complex scalar tensor or None) multiplies the wrapped
-    entry (the last element's shared node, at x = a_i)."""
+    ``phase`` (a complex scalar tensor, a per-k vector (nk,) over nk equal
+    row groups, or None) multiplies the wrapped entry (the last element's
+    shared node, at x = a_i)."""
     a = axis + 1
     shape = u.shape
     u = u.reshape(*shape[:a], n, p, *shape[a + 1:])
@@ -48,20 +60,21 @@ def gather_axis(u: torch.Tensor, axis: int, n: int, p: int, phase=None
         rolled = torch.roll(first, -1, dims=a)
     else:
         rolled = torch.cat([first.narrow(a, 1, n - 1),
-                            first.narrow(a, 0, 1) * phase], dim=a)
+                            _phased(first.narrow(a, 0, 1), phase)], dim=a)
     return torch.cat([u, rolled], dim=a + 1)
 
 
 def scatter_add_axis(r: torch.Tensor, axis: int, n: int, p: int,
                      phase=None) -> torch.Tensor:
-    """Adjoint of :func:`gather_axis` (conjugate phase on the wrap)."""
+    """Adjoint of :func:`gather_axis` (conjugate phase on the wrap; a
+    per-k ``phase`` (nk,) as there)."""
     a = axis + 1
     main = r.narrow(a + 1, 0, p)
     last = r.narrow(a + 1, p, 1)
     if phase is None:
         last = torch.roll(last, 1, dims=a)
     else:
-        last = torch.cat([last.narrow(a, n - 1, 1) * phase.conj(),
+        last = torch.cat([_phased(last.narrow(a, n - 1, 1), phase.conj()),
                           last.narrow(a, 0, n - 1)], dim=a)
     main = torch.cat([main.narrow(a + 1, 0, 1) + last,
                       main.narrow(a + 1, 1, p - 1)], dim=a + 1)
@@ -72,7 +85,8 @@ def scatter_add_axis(r: torch.Tensor, axis: int, n: int, p: int,
 def gather_qp(u: torch.Tensor, shape: Sequence[int], p: Sequence[int],
               closed: Sequence[bool], phases) -> torch.Tensor:
     """Quasi-periodic multi-axis gather: closed axes wrap with their
-    Bloch phase (``phases[i]``, ignored on open axes)."""
+    Bloch phase (``phases[i]``: a scalar, or per k (nk,) over nk equal
+    row groups; ignored on open axes)."""
     for i in range(len(shape)):
         ax = 2 * i
         if closed[i]:

@@ -25,10 +25,21 @@ For each sweep (one cold pass first) it prints, one line each:
    LOBPCG iteration (a count, comparable across calls), the device time
    by group and the operations ranked by device time.
 
+    python3 chip_profile.py --batched
+
+traces instead the k-batched solve of one chunk (``BandSweep.run``'s
+solve of all nk k at once, no refine) of the headline, config 3, config
+4's FCC field path (nk = 8) and config 2 TM: the device operations, the
+lockstep iterations and the k-iterations they solve, the device
+operations per lockstep iteration, the busy time and idle share of the
+traced window, the untraced wall of the batched solve against the same
+k solved one at a time, and the peak device memory of the batched solve.
+
 Every figure is measured in this run; the card's name and power limit
 come first.
 """
 
+import argparse
 import subprocess
 import sys
 import time
@@ -205,6 +216,81 @@ def phase_gmg_pieces(kc, op, sweep):
                    + ", ".join(f"{n} {t:.4f} ms" for n, t in ms.items()))
 
 
+def busy_us(dev):
+    """The union of the device operations' time spans, and the window
+    from the first start to the last end (µs)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    return busy, spans[-1][1] - spans[0][0]
+
+
+def phase_batched_trace(tag, kc, sweep):
+    """The device solve of the whole chunk ``kc`` as ``run`` solves it
+    (one k-batched solve, no refine): untraced against the same k solved
+    one at a time, then traced."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev_ = sweep.op.device
+    ks = sweep._rounded(kc)
+    bsolve = sweep._batched_solve()
+    X0 = sweep._x0()
+
+    def batched():
+        return bsolve(X0, ks, sweep.nev, sweep.tol, sweep.maxiter)[0]
+
+    def looped():
+        return [bsolve(X0, k[None], sweep.nev, sweep.tol,
+                       sweep.maxiter)[0] for k in ks]
+    batched()                                   # allocator, caches
+    walls = {}
+    for name, fn in (("batched", batched), ("looped", looped)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev_)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0,
+                       torch.cuda.max_memory_allocated(dev_) / 2**20, out)
+    r = walls["batched"][2]
+    its = np.asarray(r.iterations)
+    its_1 = np.concatenate([np.asarray(x.iterations)
+                            for x in walls["looped"][2]])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        batched()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        raise RuntimeError("the profiler recorded no device work")
+    busy, window = busy_us(dev)
+    lock = int(its.max())
+    chip_smoke.log(tag, f"batched device solve of nk={len(ks)}: "
+                   f"{walls['batched'][0]:.4f} s untraced, peak device "
+                   f"memory {walls['batched'][1]:.1f} MiB; the same k one "
+                   f"at a time {walls['looped'][0]:.4f} s "
+                   f"({walls['looped'][0] / walls['batched'][0]:.2f}x), "
+                   f"peak {walls['looped'][1]:.1f} MiB; iterations batched "
+                   f"{its.tolist()}, looped {its_1.tolist()}: {lock} "
+                   f"lockstep iterations for {int(its.sum())} k-iterations "
+                   f"(looped {int(its_1.sum())})")
+    chip_smoke.log(tag, f"traced: {len(dev)} device operations "
+                   f"({len(dev) / lock:.1f} per lockstep iteration), busy "
+                   f"{busy / 1e3:.3f} ms of a {window / 1e3:.3f} ms window "
+                   f"(idle share {1 - busy / window:.4f}); untraced idle "
+                   f"share {1 - busy / (1e6 * walls['batched'][0]):.4f} if "
+                   f"the busy time is the same")
+
+
 def phase_trace(tag, kc, sweep):
     """Profile the device solve (no refine) of the TRACE_K k-points."""
     import torch
@@ -234,16 +320,7 @@ def phase_trace(tag, kc, sweep):
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
         raise RuntimeError("the profiler recorded no device work")
-    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
-    busy, cur_s, cur_e = 0.0, *spans[0]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
-    window = spans[-1][1] - spans[0][0]
+    busy, window = busy_us(dev)
     chip_smoke.log(tag, f"device solve of k {list(TRACE_K)} ({iters} "
                    f"iterations): {len(dev)} device operations "
                    f"({len(dev) / iters:.1f} per LOBPCG iteration), busy "
@@ -269,7 +346,36 @@ def phase_trace(tag, kc, sweep):
                        f"x{c:<5d} {name[:110]}")
 
 
+def main_batched(dev):
+    """``--batched``: the k-batched solve of each path's chunk."""
+    from bravais_tpu_torch.bands.sweep import BandSweep
+    from bravais_tpu_torch.lattices import kpath
+
+    _, kc, _, sweep = chip_smoke.headline(dev)
+    phase_batched_trace("batched headline", kc, sweep)
+    del sweep
+    _, kc, _, sweep = chip_smoke.dielectric(dev)
+    phase_batched_trace("batched config3", kc, sweep)
+    del sweep
+    lat, _, op = chip_smoke.fcc_problem(dev)
+    kc = chip_smoke.nudged(lat, kpath(lat, npts=chip_smoke.BATCH_FIELD_NK,
+                                      path=[["G", "X", "W", "L"]]).k_cart)
+    sweep = BandSweep(op, op.make_solve_fn(deflation="project"),
+                      nev=chip_smoke.NEV, block=chip_smoke.BLOCK,
+                      tol=chip_smoke.TOL, maxiter=chip_smoke.MAXITER,
+                      device_tol=chip_smoke.FIELD_DEVICE_TOL)
+    phase_batched_trace("batched fcc_field", kc, sweep)
+    del op, sweep
+    kc, _, sweep = chip_smoke.rods_setup(dev)
+    phase_batched_trace("batched config2", kc, sweep)
+    return 0
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batched", action="store_true",
+                    help="trace the k-batched solves instead")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device; nothing was run",
@@ -283,6 +389,8 @@ def main():
         timeout=60, check=True).stdout.strip().splitlines()[0]
     chip_smoke.log("device", smi)
     dev = torch.device("cuda", 0)
+    if args.batched:
+        return main_batched(dev)
     _, kc, op, sweep = chip_smoke.headline(dev)
     sweep.run_warm(kc)   # cold pass: build, caches, allocator
     res = phase_pass("pass", kc, sweep, op.make_spectral_solve_fn)

@@ -25,7 +25,13 @@ non-zero; without a CUDA device it exits 1 before doing anything):
    elements at (l, q) = (4, 5) and the multigrid's p=1 levels, (2, 3) on
    64 and 4 elements, at k ≠ 0, h1 at config 5's (l, q) = (5, 6) on 80
    rows of TRI n=6's 216 elements with a table of its 8 k-points;
-   relative error < 2e-5);
+   relative error < 2e-5); and at the k-batched paths' shapes: Jacobi on
+   16 × 48×48 (Rayleigh–Ritz), 16 and 8 × 16×16 (whitening) and the
+   L-twin blocks of config 3's 16 k (16·216 × 27×27) and of the FCC field
+   path's 8 k (8·512 × 64×64), nd on 16·16 and 16·32 rows of config 3
+   and 8·16 and 8·32 rows at (5, 6), h1 at config 3's k = 0 on 16·16 and
+   16·32 rows, at config 2's levels with a table of its 16 k on 16·16
+   rows and at its fine level with one k on those rows;
 4. headline sweep: FCC Maxwell, n=8 p=4 (98,304 Nédélec dofs), Γ–X–W–L
    nk=16 with Γ nudged to 2e-2·b₁, 10 bands in a block of 16, spectral
    engine, device stop 1e-3 then the f64 host refine, warm-started; one
@@ -91,7 +97,20 @@ non-zero; without a CUDA device it exits 1 before doing anything):
    to the batch's calls, and on TRI ``run(chunk=1)`` giving the
    iterations per k within ±1 (rounding; the line counts the equal ones)
    and bands within 1e-6;
-9. after the sweeps, so that the launch-bound sweeps run in a process
+9. ``[batched]``: ``BandSweep.run`` solving a chunk of k as ONE k-batched
+   LOBPCG (a leading k axis, every k in lockstep, a done k frozen) on
+   every engine at full width: the FCC headline (spectral, nk=16 in one
+   chunk), config 3 (field, project-cheby, nk=16), config 4's FCC field
+   path (project, nk=8, cut from 16 for time) and config 2 TM (the
+   built-in solve with GMG, nk=16); each the path's own gates (the
+   analytic bands and no refine fallback; config 3's certify record;
+   config 2's dense oracle and TM gap), every kernel's launches equal to
+   the batch's calls (one per batched apply or eigh, not one per k), the
+   peak device memory, and on the headline, config 3 and config 2
+   ``run(chunk=1)`` (one k a solve) giving the iterations per k within ±1
+   (rounding; the line counts the equal ones) and the bands within 1e-6,
+   with its wall beside the batched one's;
+10. after the sweeps, so that the launch-bound sweeps run in a process
    the profiler has not traced: a ``torch.profiler`` count showing that
    one Jacobi call and one nd call (config 3, 16 rows, fused and M-half;
    the FCC field path's shapes) are each one device operation, then each
@@ -101,7 +120,8 @@ non-zero; without a CUDA device it exits 1 before doing anything):
    k ≠ 0 and its multigrid levels' p=1 "A" on 64 and 4 elements; nd at
    16 and 48 rows of config 3 and 16 rows of the FCC field path; config
    5's h1 "A" and fused on 16 and 80 rows with a table of 8 k and its
-   Jacobi Rayleigh–Ritz batch 8 × 30×30): its
+   Jacobi Rayleigh–Ritz batch 8 × 30×30; the k-batched shapes of phase
+   3): its
    call time between CUDA events (host issue included;
    ``ms`` in the kernels line), its device time from a ``torch.profiler``
    trace (``device_ms``), the plain version's call time, for Jacobi
@@ -173,6 +193,10 @@ CLI_ARGS = ("--lattice", "BCC", "--problem", "maxwell", "--engine", "field",
 # (docs/CONFIG5.md) rounded up.
 C5_N, C5_P, C5_NEV, C5_TOL, C5_MAXITER = 6, 4, 6, 1e-6, 300
 C5_SPECTRAL_BAR, C5_FIELD_BAR = 1e-5, 1e-4
+# The k-batched runs (``[batched]``): each path's k in one ``BandSweep.run``
+# chunk (the headline, config 3 and config 2 at their nk = 16; config 4's
+# FCC field path at nk = 8, cut from 16 for time: its refine is ≈3 s a k).
+BATCH_FIELD_NK = 8
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and float32 flop/s
 # outside the tensor cores.
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -260,7 +284,7 @@ def device_ms(fn, reps=20):
 
 
 def kernel_times(dev, op3, rods=None, plain=True, op4=None, op5=None,
-                 kernels=("jacobi", "h1", "nd")):
+                 kernels=("jacobi", "h1", "nd"), batched=False):
     """Per-call times of the three kernels at the shapes the main paths
     give them: {kernel: {shape: record}}. Each record holds the time of
     one call between two CUDA events, the host's issue in it (``ms``), the
@@ -281,8 +305,18 @@ def kernel_times(dev, op3, rods=None, plain=True, op4=None, op5=None,
     operator, n=6 p=4) also h1 "A" and fused (A, M) at (5, 6) on 16 and 80
     rows of its 216 elements with a table of its 8 k-points (2 and 10 rows
     a k: the whitening-sized block and the batched W block), and Jacobi
-    on the (8, 30, 30) batch of its Rayleigh–Ritz. ``op3`` is the config-3
-    operator; ``kernels`` names the kernels to time."""
+    on the (8, 30, 30) batch of its Rayleigh–Ritz; with ``batched`` (and
+    ``rods`` and ``op4``) also the k-batched paths' shapes: Jacobi on the
+    (16, 48, 48) Rayleigh–Ritz, the (16, 16, 16) whitening, config 3's
+    L-twin blocks of 16 k (16·216 × 27×27) and the FCC field path's of 8
+    k (8·512 × 64×64; there ``torch.linalg.eigh`` is warmed once and
+    timed between events only, its trace of ≈650,000 operations too long
+    to read; above 1,000 matrices one call of each plain version), nd
+    fused and M-half on 16·16 and 16·32 rows of config 3 and 8·16 and
+    8·32 rows of the FCC field path, h1 "A" at config 3's k = 0 on 16·16
+    and 16·32 rows, on config 2's levels with a table of its 16 k on
+    16·16 rows and its fine level's mass at one k on those rows. ``op3``
+    is the config-3 operator; ``kernels`` names the kernels to time."""
     import numpy as np
     import torch
     from bravais_tpu_torch.eigen import jacobi_cuda
@@ -292,14 +326,15 @@ def kernel_times(dev, op3, rods=None, plain=True, op4=None, op5=None,
     from bravais_tpu_torch.utils.timing import cuda_ms
 
     def record(call, plain_call, work, library=None, library_reps=20,
-               **extra):
+               plain_reps=5, library_warmup=3, library_trace=True, **extra):
         b_ms, b_by = bound(*work)
         rec = {"device_ms": device_ms(call), "ms": cuda_ms(call),
-               "plain_ms": (cuda_ms(plain_call, reps=5, warmup=1)
+               "plain_ms": (cuda_ms(plain_call, reps=plain_reps, warmup=1)
                             if plain else None),
                "library_device_ms": (device_ms(library, library_reps)
-                                     if library else None),
-               "library_ms": (cuda_ms(library, reps=library_reps)
+                                     if library and library_trace else None),
+               "library_ms": (cuda_ms(library, reps=library_reps,
+                                      warmup=library_warmup)
                               if library else None),
                "bound_ms": b_ms, "bound_by": b_by}
         rec.update(extra)
@@ -309,7 +344,8 @@ def kernel_times(dev, op3, rods=None, plain=True, op4=None, op5=None,
     gen = torch.Generator(device=dev).manual_seed(11)
     c = op3.qp_L().consts()
     k0 = [0.0] * c.d
-    for rows in (16, 32, 48) if "h1" in kernels else ():
+    h1_rows = (16, 32, 48) + ((16 * 16, 16 * 32) if batched else ())
+    for rows in h1_rows if "h1" in kernels else ():
         ue = torch.randn((rows * c.nelem,) + (c.l,) * c.d, generator=gen,
                          dtype=torch.complex64, device=dev)
         out["h1"][f"rows {rows} k=0 A"] = record(
@@ -345,9 +381,30 @@ def kernel_times(dev, op3, rods=None, plain=True, op4=None, op5=None,
                     lambda: h1_apply.helmholtz_apply(ue, c, kt, want),
                     lambda: h1_apply.helmholtz_apply_plain(ue, c, kt, want),
                     h1_apply.work(ue.shape[0], c, kt, want))
+    if batched and "h1" in kernels:
+        kt = np.asarray(rods[0], np.float32)
+        levels = rods[2].gmg.levels
+        for key, lv, want, k in (
+                ("fine", levels[0], "AM", kt),
+                ("8x8 p=1", levels[2], "A", kt),
+                ("2x2 p=1", levels[-1], "A", kt),
+                ("fine", levels[0], "M", [0.0, 0.0])):
+            c = lv.op.consts()
+            ue = torch.randn((16 * len(kt) * c.nelem,) + (c.l,) * c.d,
+                             generator=gen, dtype=torch.complex64, device=dev)
+            table = (f"k-table {len(kt)}" if np.ndim(k) == 2 else "one k")
+            out["h1"][f"config-2 batched {key} rows {16 * len(kt)} {table} "
+                      f"{want}"] = record(
+                lambda: h1_apply.helmholtz_apply(ue, c, k, want),
+                lambda: h1_apply.helmholtz_apply_plain(ue, c, k, want),
+                h1_apply.work(ue.shape[0], c, k, want))
     nd_shapes = [("", op3, 16), ("", op3, 48)]
     if op4 is not None:
         nd_shapes.append(("fcc ", op4, 16))
+    if batched:
+        nd_shapes += [("batched ", op3, 16 * 16), ("batched ", op3, 16 * 32),
+                      ("fcc batched ", op4, 8 * 16),
+                      ("fcc batched ", op4, 8 * 32)]
     for tag, op, rows in nd_shapes if "nd" in kernels else ():
         c = op.nd_consts()
         ue = torch.randn((rows * c.nelem, c.ndof), generator=gen,
@@ -367,8 +424,16 @@ def kernel_times(dev, op3, rods=None, plain=True, op4=None, op5=None,
             [rand_herm(30, 60 + i) for i in range(8)]), 1e-4))
     if op4 is not None:
         jac_shapes.append(("l-twin 512x64x64", ltwin_blocks(op4), None))
+    if batched:
+        jac_shapes += [("batched rr 16x48x48", np.stack(
+            [rand_herm(48, 300 + i) for i in range(16)]), 1e-4),
+            ("batched whitening 16x16x16", np.stack(
+                [rand_herm(16, 400 + i) for i in range(16)]), None),
+            ("batched l-twin 16x216x27x27", ltwin_blocks(op3, 16), None),
+            ("batched l-twin 8x512x64x64", ltwin_blocks(op4, 8), None)]
     for key, H, rel_tol in jac_shapes if "jacobi" in kernels else ():
         H = torch.as_tensor(H, dtype=torch.complex64, device=dev)
+        huge = H.numel() // H.shape[-1] ** 2 > 1000
         nsw = jacobi_cuda.sweeps_run(H, rel_tol=rel_tol).reshape(-1)
         nsw = nsw.cpu().numpy()
         # Above n = 32 ``torch.linalg.eigh`` solves a batch one matrix at
@@ -377,12 +442,16 @@ def kernel_times(dev, op3, rods=None, plain=True, op4=None, op5=None,
         # the process empty. So it is traced for one call, after every
         # other trace here.
         big = H.shape[-1] > 32 and H.numel() // H.shape[-1] ** 2 > 1
+        # 8·512 × 64×64: one eigh call is ≈650,000 device operations (≈3
+        # s), so it is warmed once and not traced.
+        vast = big and huge
         out["jacobi"][key] = record(
             lambda: jacobi_eigh(H, rel_tol=rel_tol),
             lambda: jacobi_eigh_plain(H, rel_tol=rel_tol),
             jacobi_work(H.shape[-1], nsw),
             library=lambda: torch.linalg.eigh(H),
-            library_reps=1 if big else 20,
+            library_reps=1 if big else 20, plain_reps=1 if huge else 5,
+            library_warmup=1 if vast else 3, library_trace=not vast,
             sweeps=[int(nsw.min()), int(nsw.max())])
     return out
 
@@ -392,7 +461,9 @@ def log_times(times):
     for kernel, shapes in times.items():
         for shape, r in shapes.items():
             lib = (f", torch.linalg.eigh {r['library_ms']:.4f} ms per call "
-                   f"({r['library_device_ms']:.4f} ms device)"
+                   + (f"({r['library_device_ms']:.4f} ms device)"
+                      if r["library_device_ms"] is not None
+                      else "(device time not traced)")
                    if r["library_ms"] is not None else "")
             pl = (f", plain {r['plain_ms']:.4f} ms per call"
                   if r["plain_ms"] is not None else "")
@@ -545,18 +616,21 @@ def ptxas_report(libs):
     return out
 
 
-def phase_jacobi_ltwin(dev, op):
-    """The Jacobi kernel on the L-twin blocks of a field-engine operator
-    (config 3: 216 of 27×27; the FCC field path: 512 of 64×64), the batch
-    the field solve's projector factors once per k, against its plain
-    version; returns the max abs eigenvalue error."""
+def phase_jacobi_blocks(dev, label, T):
+    """The Jacobi kernel on a batch of blocks T (..., n, n) a path hands
+    it, against its plain version: the L-twin blocks of a field-engine
+    operator (config 3: 216 of 27×27; the FCC field path: 512 of 64×64,
+    and 8·512 for a batch of 8 k), the batched Rayleigh–Ritz (16 ×
+    48×48); returns the max abs eigenvalue error."""
     import numpy as np
     import torch
     from bravais_tpu_torch.eigen import jacobi_cuda
     from bravais_tpu_torch.eigen.jacobi_eigh import (jacobi_eigh,
                                                     jacobi_eigh_plain)
 
-    T = ltwin_blocks(op)
+    n = T.shape[-1]
+    T = torch.as_tensor(T, dtype=torch.complex64, device=dev)
+    T = T.reshape(-1, n, n)
     w, V = jacobi_eigh(T)
     w_pl, _ = jacobi_eigh_plain(T)
     torch.cuda.synchronize()
@@ -567,26 +641,31 @@ def phase_jacobi_ltwin(dev, op):
     R = Tn @ V - V * w[:, None, :]
     res = float(np.max(np.linalg.norm(R, axis=(1, 2))
                        / np.linalg.norm(Tn, axis=(1, 2))))
-    eye = np.eye(T.shape[-1])
+    eye = np.eye(n)
     orth = float(np.max(np.linalg.norm(V.conj().transpose(0, 2, 1) @ V - eye,
                                        axis=(1, 2))))
     nsw = jacobi_cuda.sweeps_run(T).cpu().numpy()
-    log("kernel", f"L-twin {Tn.shape[0]}x{Tn.shape[1]}x{Tn.shape[2]}: eig "
-        f"err/scale {ev:.3e} (<5e-4), |HV-VL|/|H| {res:.3e} (<2e-5), "
-        f"|V^H V-I| {orth:.3e} (<2e-4), sweeps {nsw.min()}-{nsw.max()}")
+    log("kernel", f"Jacobi {label} {Tn.shape[0]}x{n}x{n}: eig err/scale "
+        f"{ev:.3e} (<5e-4), |HV-VL|/|H| {res:.3e} (<2e-5), |V^H V-I| "
+        f"{orth:.3e} (<2e-4), sweeps {nsw.min()}-{nsw.max()}")
     if not (ev < 5e-4 and res < 2e-5 and orth < 2e-4):
-        raise RuntimeError("Jacobi kernel disagrees with plain on the "
-                           "L-twin blocks")
+        raise RuntimeError(f"Jacobi kernel disagrees with plain on {label}")
     return float(np.max(np.abs(w - w_pl)))
 
 
-def ltwin_blocks(op):
+def ltwin_blocks(op, nk=None):
     """The L-twin blocks of a field-engine operator at one k, as the field
     solve's projector factors them (config 3: (216, 27, 27); the FCC
-    field path: (512, 64, 64))."""
+    field path: (512, 64, 64)), or at a table of ``nk`` k-points, as the
+    k-batched solve factors them ((nk, 512, 64, 64))."""
     import numpy as np
-    k = np.asarray(op.space.grid.lattice.k_cart((0.1, 0.3, 0.0)))
-    return op.fastdiag_L().blocks([("L", 1.0)], k)
+    lat = op.space.grid.lattice
+    if nk is None:
+        return op.fastdiag_L().blocks([("L", 1.0)],
+                                      np.asarray(lat.k_cart((0.1, 0.3, 0.0))))
+    ks = np.asarray([lat.k_cart((0.1 + 0.05 * i, 0.3, 0.0))
+                     for i in range(nk)])
+    return op.fastdiag_L().blocks([("L", 1.0)], ks)
 
 
 def _rel(a, b):
@@ -598,11 +677,12 @@ def _rel(a, b):
 def phase_elements(dev, op3, rods, op4, op5):
     """The nd and h1 element kernels against their plain versions; returns
     their max abs errors (nd, h1). ``rods`` is the config-2 setup, whose
-    multigrid levels give h1 its 2D shapes; ``op4`` the FCC field path's
-    operator, which gives nd its (l, q) = (5, 6) shape; ``op5`` a config-5
-    operator (TRI n=6 p=4), which gives h1 its (5, 6) shape with a table
-    of the 8 k-points on 80 rows (10 a k), as the batched solve calls
-    it."""
+    multigrid levels give h1 its 2D shapes (also with a table of its 16
+    k on 16·16 rows, as the k-batched V-cycle calls it); ``op4`` the FCC
+    field path's operator, which gives nd its (l, q) = (5, 6) shape;
+    ``op5`` a config-5 operator (TRI n=6 p=4), which gives h1 its (5, 6)
+    shape with a table of the 8 k-points on 80 rows (10 a k), as the
+    batched solve calls it."""
     import numpy as np
     import torch
     from bravais_tpu_torch.lattices import make_lattice
@@ -631,11 +711,15 @@ def phase_elements(dev, op3, rods, op4, op5):
         eval_coefficient(lambda x: 1 + np.sum(x ** 2, axis=-1), xq), dev)
     k3 = [float(v) for v in fcc.k_cart((0.3, 0.2, 0.1))]
 
-    # -- nd --
+    # -- nd (16·16 and 8·16 rows: the k-batched field solves') --
     max_abs = 0.0
     for label, c, rows in (("config-3", op3.nd_consts(), 16),
                            ("config-3", op3.nd_consts(), 48),
+                           ("config-3 batched", op3.nd_consts(), 16 * 16),
+                           ("config-3 batched", op3.nd_consts(), 16 * 32),
                            ("FCC n=8 p=4", op4.nd_consts(), 16),
+                           ("FCC n=8 p=4 batched", op4.nd_consts(), 8 * 16),
+                           ("FCC n=8 p=4 batched", op4.nd_consts(), 8 * 32),
                            ("FCC n=3 p=2", nd_small.nd_consts(), 5)):
         ue = dofs(rows * c.nelem, (c.ndof,))
         errs = []
@@ -669,12 +753,24 @@ def phase_elements(dev, op3, rods, op4, op5):
     lat5 = op5.space.grid.lattice
     k5 = np.asarray([lat5.k_cart(f) for f in KFRAC], np.float32)
     h1_5 = [("config-5 TRI k-table 8", op5.consts(), 80, k5)]
+    # The k-batched GMG: config 2's levels with a table of its 16 k.
+    k2t = np.asarray(rods[0], np.float32)
+    h1_2t = [(f"config-2 {lv.op.space.grid.shape[0]}x"
+              f"{lv.op.space.grid.shape[1]} p={lv.op.space.p} k-table "
+              f"{len(k2t)}", lv.op.consts(), 16 * len(k2t), k2t)
+             for lv in (levels[0], levels[2], levels[-1])]
+    # Its mass apply (one k, k-independent) on the same rows, and config
+    # 3's L apply at k = 0 on the batched projector's nk·m and nk·2m rows.
+    h1_2t += [("config-2 16x16 p=3 one k", levels[0].op.consts(),
+               16 * len(k2t), k2),
+              ("config-3 k=0 batched", c3, 16 * 16, [0.0] * 3),
+              ("config-3 k=0 batched", c3, 16 * 32, [0.0] * 3)]
     for label, c, rows, k in [("config-3 k=0", c3, 16, [0.0] * 3),
                               ("config-3 k=0", c3, 32, [0.0] * 3),
                               ("config-3 k=0", c3, 48, [0.0] * 3),
                               ("config-3 k!=0", c3, 16, kx),
                               ("FCC n=3 p=2 k!=0", h1_small, 5, k3)] \
-            + h1_2d + h1_5:
+            + h1_2d + h1_5 + h1_2t:
         ue = dofs(rows * c.nelem, (c.l,) * c.d)
         errs = []
         for want in ("AM", "A", "M"):
@@ -748,13 +844,14 @@ def eig_error(lam, lat, k, mmax, mult):
     return float(np.max(np.abs(lam - ex))) / max(float(ex.max()), 1.0)
 
 
-def phase_sweep(dev):
-    """The headline warm sweep; returns the main path's launch count."""
+def phase_sweep(dev, head):
+    """The headline warm sweep (``head``: the ``headline`` setup); returns
+    the main path's launch count."""
     import numpy as np
     import torch
     from bravais_tpu_torch.eigen import jacobi_cuda
 
-    lat, kc, _, sweep = headline(dev)
+    lat, kc, _, sweep = head
 
     walls, launches = [], None
     for p in range(PASSES + 1):
@@ -841,16 +938,10 @@ def expected_launches(iterations, steps):
             "jacobi": sum(i + 2 for i in its)}
 
 
-def phase_dielectric(dev, setup, passes=DIEL_PASSES):
-    """The config-3 warm sweep, one cold pass and ``passes`` timed ones;
-    returns (the launches of one pass, eig/s: the median over the timed
-    passes)."""
+def diel_oracle(kc, op):
+    """Config 3's f64 oracle record ({k index: record}), checked against
+    the sweep's configuration and k-points."""
     import numpy as np
-    import torch
-    from bravais_tpu_torch.eigen import jacobi_cuda
-    from bravais_tpu_torch.operators import h1_apply, nd_apply
-
-    _, kc, op, sweep = setup
     oracle = {}
     for line in DIEL_ORACLE.read_text().splitlines():
         rec = json.loads(line)
@@ -868,6 +959,36 @@ def phase_dielectric(dev, setup, passes=DIEL_PASSES):
                            atol=1e-12):
             raise RuntimeError(f"oracle k {rec['k']} != path k "
                                f"{kc[rec['k_index']].tolist()}")
+    return oracle
+
+
+def diel_errors(res, oracle):
+    """[(k index, band-1 error, band-10 error, within the bars)]: band 1
+    absolute at k index 0 (the nudged Γ), relative elsewhere; band 10
+    relative."""
+    errs = []
+    for ki, rec in sorted(oracle.items()):
+        lam = res.eigenvalues[ki]
+        e_lo = abs(lam[0] - rec["lam_lo"])
+        e_hi = abs(lam[NEV - 1] - rec["lam_hi"]) / rec["lam_hi"]
+        lo_ok = (e_lo < DIEL_GAMMA_ABS if ki == 0
+                 else e_lo / rec["lam_lo"] < DIEL_REL_BAR)
+        errs.append((ki, e_lo if ki == 0 else e_lo / rec["lam_lo"],
+                     e_hi, lo_ok and e_hi < DIEL_REL_BAR))
+    return errs
+
+
+def phase_dielectric(dev, setup, passes=DIEL_PASSES):
+    """The config-3 warm sweep, one cold pass and ``passes`` timed ones;
+    returns (the launches of one pass, eig/s: the median over the timed
+    passes)."""
+    import numpy as np
+    import torch
+    from bravais_tpu_torch.eigen import jacobi_cuda
+    from bravais_tpu_torch.operators import h1_apply, nd_apply
+
+    _, kc, op, sweep = setup
+    oracle = diel_oracle(kc, op)
     steps = op.cheby_steps()
     walls, shares = [], []
     for p in range(passes + 1):
@@ -884,15 +1005,7 @@ def phase_dielectric(dev, setup, passes=DIEL_PASSES):
                "nd A": nd_apply.launches_by_mode["A"],
                "h1": h1_apply.launches, "jacobi": jacobi_cuda.launches}
         want = expected_launches(res.iterations, steps)
-        errs = []
-        for ki, rec in sorted(oracle.items()):
-            lam = res.eigenvalues[ki]
-            e_lo = abs(lam[0] - rec["lam_lo"])
-            e_hi = abs(lam[NEV - 1] - rec["lam_hi"]) / rec["lam_hi"]
-            lo_ok = (e_lo < DIEL_GAMMA_ABS if ki == 0
-                     else e_lo / rec["lam_lo"] < DIEL_REL_BAR)
-            errs.append((ki, e_lo if ki == 0 else e_lo / rec["lam_lo"],
-                         e_hi, lo_ok and e_hi < DIEL_REL_BAR))
+        errs = diel_errors(res, oracle)
         resid = res.residuals.max(axis=1)
         tag = "cold" if p == 0 else f"pass {p}"
         share = res.refine_s / res.wall_s
@@ -1019,8 +1132,9 @@ def te_setup(dev):
 
 def expected_h1_launches(iterations, sweep):
     """The kernel launches one pass of a scalar path makes, from its
-    iteration counts. Spectral engine: Jacobi once per iteration
-    (Rayleigh–Ritz) and once per k (start whitening), no element kernel.
+    iteration counts. Spectral engine (the Maxwell one too): Jacobi once
+    per iteration (Rayleigh–Ritz) and once per k (start whitening), no
+    element kernel.
     Matrix-free: per k the h1 M-half once (start whitening), the fused
     (A, M) once per iteration (W) and twice per 16-iteration segment (X
     and P refresh), the "A" half once per operator apply of the
@@ -1112,11 +1226,17 @@ def band_errors(lam, ref):
 
 
 def phase_rods2d(dev, setup):
-    """Config 2 TM: refined bands 1–10 at k indices 0, 5, 10, 15 against
-    the dense complex128 oracle at the solved (float32) k, and the TM gap
-    against the published brackets."""
-    import numpy as np
+    """Config 2 TM, warm: the gates of ``rods_check``."""
     kc, op, _ = setup
+    return phase_h1_path(dev, "rods2d", setup, rods_check(kc, op, dev))
+
+
+def rods_check(kc, op, dev):
+    """Config 2 TM's gate on a result: refined bands 1–10 at k indices 0,
+    5, 10, 15 against the dense complex128 oracle at the solved (float32)
+    k, and the TM gap against the published brackets; returns check(res)
+    → (text, ok)."""
+    import numpy as np
     k32 = kc.astype(np.float32).astype(np.float64)
     t0 = time.perf_counter()
     oracle = {ki: dense_bands(op.space, k32[ki], NEV, op.alpha,
@@ -1138,7 +1258,7 @@ def phase_rods2d(dev, setup):
                 + f" (<{RODS_REL_BAR:g}); TM gap {lo:.4f}-{hi:.4f}, ratio "
                 f"{ratio:.4f} (published {TM_GAP}); max refined residual "
                 f"{np.max(res.residuals):.3e}", ok)
-    return phase_h1_path(dev, "rods2d", setup, check)
+    return check
 
 
 def phase_te(dev, setup):
@@ -1244,37 +1364,6 @@ def config5_operator(dev):
                  dev)[2]
 
 
-def expected_c5_launches(iterations, engine):
-    """The kernel launches of one k-batched config-5 ``run``: the k-points
-    step in lockstep, so the batch makes max(iterations) iterations, each
-    one Rayleigh–Ritz Jacobi launch for all k, plus one for the start
-    whitening; the matrix-free engine also one h1 M-half (start
-    whitening), one fused (A, M) per iteration (W) and two per
-    16-iteration segment (X and P refresh), each for all k at once."""
-    it = int(max(iterations))
-    out = {"h1 A": 0, "h1 AM": 0, "h1 M": 0, "jacobi": 1 + it}
-    if engine == "field":
-        out.update({"h1 AM": it + 2 * -(-it // 16), "h1 M": 1})
-    return out
-
-
-def _c5_counts():
-    from bravais_tpu_torch.eigen import jacobi_cuda
-    from bravais_tpu_torch.operators import h1_apply
-    return {"h1 A": h1_apply.launches_by_want["A"],
-            "h1 AM": h1_apply.launches_by_want["AM"],
-            "h1 M": h1_apply.launches_by_want["M"],
-            "jacobi": jacobi_cuda.launches}
-
-
-def _c5_zero():
-    from bravais_tpu_torch.eigen import jacobi_cuda
-    from bravais_tpu_torch.operators import h1_apply
-    jacobi_cuda.launches = h1_apply.launches = 0
-    for want in h1_apply.launches_by_want:
-        h1_apply.launches_by_want[want] = 0
-
-
 def phase_config5(dev):
     """Config 5: all 14 Bravais lattices at n=6 p=4 (13,824 dofs), the 8
     generic k of ``KFRAC`` in ONE k-batched ``BandSweep.run`` per lattice
@@ -1301,13 +1390,13 @@ def phase_config5(dev):
                                        C5_MAXITER, engine, dev)
             setup = time.perf_counter() - t0
             torch.cuda.synchronize()
-            _c5_zero()
+            _zero_counts()
             t0 = time.perf_counter()
             res = sweep.run(kc)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            got = _c5_counts()
-            want = expected_c5_launches(res.iterations, engine)
+            got = _counts()
+            want = expected_batched_launches(res.iterations, sweep)
             err = max_rel_err(lat, kc, res.eigenvalues)
             errs[lat.variant] = err
             h1 = (f", h1 launches {got['h1 AM'] + got['h1 M']} (AM "
@@ -1361,6 +1450,157 @@ def phase_config5(dev):
                 or not rel < 1e-6:
             raise RuntimeError(f"config5 TRI {engine}: chunk=1 differs from "
                                f"the batched run")
+    return launches
+
+
+def _zero_counts():
+    """Every kernel's launch count set to 0."""
+    from bravais_tpu_torch.eigen import jacobi_cuda
+    from bravais_tpu_torch.operators import h1_apply, nd_apply
+    jacobi_cuda.launches = nd_apply.launches = h1_apply.launches = 0
+    for d in (nd_apply.launches_by_mode, h1_apply.launches_by_want):
+        for key in d:
+            d[key] = 0
+
+
+def _counts():
+    """Every kernel's launch count, nd and h1 by the halves computed."""
+    from bravais_tpu_torch.eigen import jacobi_cuda
+    from bravais_tpu_torch.operators import h1_apply, nd_apply
+    out = {f"nd {w}": nd_apply.launches_by_mode[w] for w in ("M", "AM", "A")}
+    out.update({f"h1 {w}": h1_apply.launches_by_want[w]
+                for w in ("A", "AM", "M")})
+    out["jacobi"] = jacobi_cuda.launches
+    return out
+
+
+def expected_batched_launches(iterations, sweep, steps=None):
+    """The kernel launches of one k-batched ``run`` (one chunk) of
+    ``sweep``: the k step in lockstep, so the batch makes max(iterations)
+    iterations, and every apply and eigensolve of an iteration is one
+    launch for all k. A field-engine solve (``steps``: its Chebyshev
+    projector's, 1 for the exact "project" one) makes the calls of
+    ``expected_launches`` at that one iteration count (the L-twin eigh of
+    the whole chunk one launch); every other solve those of
+    ``expected_h1_launches`` (the spectral engines: Jacobi only)."""
+    it = [int(max(iterations))]
+    out = dict.fromkeys(("nd M", "nd AM", "nd A", "h1 A", "h1 AM", "h1 M",
+                         "jacobi"), 0)
+    if steps is None:
+        out.update(expected_h1_launches(it, sweep))
+    else:
+        e = expected_launches(it, steps)
+        out.update({key: e[key] for key in ("nd M", "nd AM", "nd A",
+                                            "jacobi")})
+        out["h1 A"] = e["h1"]
+    return out
+
+
+def phase_batched(dev, head, setup3, rods, setup4):
+    """The k-batched ``BandSweep.run`` on every engine at full width, each
+    run with every count set to 0 just before and read just after: the
+    FCC headline (spectral, nk = 16 in one chunk), config 3 (field,
+    project-cheby, nk = 16), config 4's FCC field path (project, nk =
+    ``BATCH_FIELD_NK``) and config 2 TM (the built-in solve with GMG,
+    nk = 16). Gates, each the path's own: the analytic bands < 1e-6 and
+    no refine fallback (headline), the certify record (config 3), the
+    analytic bands (config 4), the dense oracle and the TM gap (config
+    2); every kernel's launches equal to the batch's calls
+    (``expected_batched_launches``); on the headline, config 3 and config
+    2 ``run(chunk=1)`` (one k a solve) gives the iterations per k within
+    ±1 (rounding, below) and the refined bands within 1e-6. Returns
+    {path: launches of its batched run}."""
+    import numpy as np
+    import torch
+    from bravais_tpu_torch.bands.sweep import BandSweep
+    from bravais_tpu_torch.lattices import kpath
+
+    lat_h, kc_h, _, sw_h = head
+    _, kc3, op3, sw3 = setup3
+    kc2, op2, sw2 = rods
+    lat4, _, op4 = setup4
+    kc4 = nudged(lat4, kpath(lat4, npts=BATCH_FIELD_NK,
+                             path=[["G", "X", "W", "L"]]).k_cart)
+    sw4 = BandSweep(op4, op4.make_solve_fn(deflation="project"), nev=NEV,
+                    block=BLOCK, tol=TOL, maxiter=MAXITER,
+                    device_tol=FIELD_DEVICE_TOL)
+
+    def analytic(kc, lat):
+        def check(res):
+            err = max(eig_error(res.eigenvalues[i], lat, k, mmax=3, mult=2)
+                      for i, k in enumerate(kc))
+            return (f"max eig err {err:.3e} (<{ERR_BAR:g}), refine "
+                    f"fallbacks {res.fallbacks}",
+                    err < ERR_BAR and res.fallbacks == 0)
+        return check
+
+    oracle3 = diel_oracle(kc3, op3)
+
+    def check3(res):
+        errs = diel_errors(res, oracle3)
+        resid = res.residuals.max()
+        return ("oracle errors (k index: band 1, band 10) " + ", ".join(
+            f"{ki}: {lo:.3e} {hi:.3e}" for ki, lo, hi, _ in errs)
+            + f"; max refined residual {resid:.3e}",
+            all(ok for *_, ok in errs) and np.isfinite(resid)
+            and resid < DIEL_RES_BAR)
+
+    check2 = rods_check(kc2, op2, dev)
+    paths = (("headline", kc_h, sw_h, analytic(kc_h, lat_h), None),
+             ("config3", kc3, sw3, check3, op3.cheby_steps()),
+             ("fcc_field", kc4, sw4, analytic(kc4, lat4), 1),
+             ("config2", kc2, sw2, check2, None))
+    launches = {}
+    for tag, kc, sweep, check, steps in paths:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_counts()
+        t0 = time.perf_counter()
+        res = sweep.run(kc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        want = expected_batched_launches(res.iterations, sweep, steps)
+        text, ok = check(res)
+        log("batched", f"{tag}: nk={len(kc)} in one chunk, wall {wall:.3f} s"
+            f" (host refine {res.refine_s:.3f} s), {len(kc) / wall:.4f} "
+            f"eig/s, iterations {res.iterations.tolist()} "
+            f"({int(max(res.iterations))} lockstep for "
+            f"{int(res.iterations.sum())} k-iterations), peak "
+            f"device memory {peak:.1f} MiB, launches {got} (expected "
+            f"{want}); {text}")
+        if not ok:
+            raise RuntimeError(f"batched {tag}: a gate failed: {text}")
+        if got != want or got["jacobi"] <= 0:
+            raise RuntimeError(f"batched {tag}: kernel launches {got} != the"
+                               f" batch's calls {want}")
+        launches[tag] = got
+        if tag == "fcc_field":
+            continue
+        # Batched against looped: the same solves one k at a time. The
+        # batched LOBPCG forms its Grams in complex128 (``lobpcg._gram``),
+        # so the batch shape no longer moves them; ±1 (as ``[config5]``)
+        # is left for the float32 rest; the line counts the equal k.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = sweep.run(kc, chunk=1)
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t0
+        gap = np.abs(one.iterations - res.iterations)
+        diff = band_errors(one.eigenvalues, res.eigenvalues)
+        log("batched", f"{tag} chunk=1: wall {wall1:.3f} s (host refine "
+            f"{one.refine_s:.3f} s; {wall1 / wall:.2f}x the batched run), "
+            f"iterations {one.iterations.tolist()}: the same at "
+            f"{int(np.sum(gap == 0))} of {len(kc)} k, ±1 at "
+            f"{int(np.sum(gap == 1))}; bands "
+            f"max diff {diff:.3e} (<1e-6; relative, to the top band below "
+            f"1e-3 of it)")
+        if np.any(gap > 1) or not diff < 1e-6:
+            raise RuntimeError(f"batched {tag}: chunk=1 iterations "
+                               f"{one.iterations.tolist()} vs "
+                               f"{res.iterations.tolist()}, bands differ by "
+                               f"{diff:.3e}")
     return launches
 
 
@@ -1433,6 +1673,7 @@ def phase_cli(dev):
 def main():
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
 
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1460,11 +1701,23 @@ def main():
     setup3 = dielectric(dev)
     rods = rods_setup(dev)
     setup4 = fcc_problem(dev)
-    jac_err = max(jac_err, phase_jacobi_ltwin(dev, setup3[2]),
-                  phase_jacobi_ltwin(dev, setup4[2]))
+    for label, T in (("L-twin config 3", ltwin_blocks(setup3[2])),
+                     ("L-twin FCC field", ltwin_blocks(setup4[2])),
+                     ("batched L-twin config 3, 16 k",
+                      ltwin_blocks(setup3[2], 16)),
+                     ("batched L-twin FCC field, 8 k",
+                      ltwin_blocks(setup4[2], 8)),
+                     ("batched RR", np.stack([rand_herm(48, 300 + i)
+                                              for i in range(16)])),
+                     ("batched whitening, 16 k",
+                      np.stack([rand_herm(16, 400 + i) for i in range(16)])),
+                     ("batched whitening, 8 k",
+                      np.stack([rand_herm(16, 400 + i) for i in range(8)]))):
+        jac_err = max(jac_err, phase_jacobi_blocks(dev, label, T))
     op5 = config5_operator(dev)
     nd_err, h1_err = phase_elements(dev, setup3[2], rods, setup4[2], op5)
-    fcc_launches = phase_sweep(dev)
+    head = headline(dev)
+    fcc_launches = phase_sweep(dev, head)
     diel, _ = phase_dielectric(dev, setup3)
     scalar, _ = phase_scalar(dev, scalar_setup(dev))
     rods2d, _ = phase_rods2d(dev, rods)
@@ -1476,10 +1729,12 @@ def main():
         else "the runtime-extent template")
     phase_cli(dev)
     c5 = phase_config5(dev)
+    batched = phase_batched(dev, head, setup3, rods, setup4)
     # The profiler's phases come last, so that the launch-bound sweeps
     # run in a process it has not traced.
     phase_one_operation(dev, setup3[2], setup4[2])
-    times = kernel_times(dev, setup3[2], rods, op4=setup4[2], op5=op5)
+    times = kernel_times(dev, setup3[2], rods, op4=setup4[2], op5=op5,
+                         batched=True)
     log_times(times)
     jac, nd_rec, h1_rec = (
         {"name": name, "route": "cuda",
@@ -1504,11 +1759,14 @@ def main():
         "config1_scalar": scalar["jacobi"], "config2_rods2d": rods2d["jacobi"],
         "te_air_holes": te["jacobi"], "fcc_field": fcc_field["jacobi"],
         "config5_spectral": c5["spectral"]["jacobi"],
-        "config5_field": c5["field"]["jacobi"]}
+        "config5_field": c5["field"]["jacobi"],
+        **{f"batched_{path}": got["jacobi"] for path, got in batched.items()}}
     jac["launches"] = sum(jac["launches_by_path"].values())
     nd_rec["launches_by_path"] = {
         path: {"M": got["nd M"], "AM": got["nd AM"], "A": got["nd A"]}
-        for path, got in (("config3_field", diel), ("fcc_field", fcc_field))}
+        for path, got in (("config3_field", diel), ("fcc_field", fcc_field),
+                          ("batched_config3", batched["config3"]),
+                          ("batched_fcc_field", batched["fcc_field"]))}
     nd_rec["launches_by_mode"] = {
         mode: sum(v[mode] for v in nd_rec["launches_by_path"].values())
         for mode in ("M", "AM", "A")}
@@ -1518,10 +1776,14 @@ def main():
         "config2_rods2d": {w: rods2d[f"h1 {w}"] for w in ("A", "AM", "M")},
         "te_air_holes": {w: te[f"h1 {w}"] for w in ("A", "AM", "M")},
         "config5_field": {w: c5["field"][f"h1 {w}"]
-                          for w in ("A", "AM", "M")}}
+                          for w in ("A", "AM", "M")},
+        **{f"batched_{path}": {w: batched[path][f"h1 {w}"]
+                               for w in ("A", "AM", "M")}
+           for path in ("config3", "config2")}}
     h1_rec["launches"] = diel["h1"] + sum(
-        v for path in (rods2d, te, c5["field"]) for key, v in path.items()
-        if key.startswith("h1"))
+        v for path in (rods2d, te, c5["field"], batched["config3"],
+                       batched["config2"])
+        for key, v in path.items() if key.startswith("h1"))
     print(json.dumps({"kernels": [jac, nd_rec, h1_rec]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

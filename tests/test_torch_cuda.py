@@ -1,8 +1,9 @@
 """The port on a CUDA device: the hand-written Jacobi, Nédélec (nd) and
 H1 element kernels against their plain torch versions, the field
 engine's and the scalar Helmholtz operator's fused (A, M) applies and one
-multigrid V-cycle on the card against the CPU, and the warm spectral,
-field and scalar sweeps on the card against the same sweeps on the CPU.
+multigrid V-cycle on the card against the CPU, the warm spectral, field
+and scalar sweeps and the k-batched ``run`` of every engine on the card
+against the same sweeps on the CPU.
 Every test skips without a CUDA device.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
@@ -338,6 +339,64 @@ def test_batched_run_on_cuda_matches_cpu(cuda, engine):
         # 16-iteration segment: one launch each for all 8 k
         its = int(rg.iterations.max())
         assert launched == 1 + its + 2 * -(-its // 16)
+
+
+
+@pytest.mark.parametrize("engine", ["spectral", "project", "project-cheby",
+                                    "gmg"])
+def test_batched_engines_on_cuda_match_cpu(cuda, engine):
+    """Each engine that ``run`` now batches, three k in one k-batched
+    solve on the card and on the CPU: the FCC spectral and "project"
+    field engines (n=3 p=2), config 3's sphere on "project-cheby" (n=3
+    p=2), config 2's rods with GMG (n=8 p=2). The same iterations per k
+    (±1), refined bands within 1e-6 relative (to 1e-2 of the k's top
+    band below it), and on the card every element apply of the batch is
+    one launch for the three k: the field engines' nd launches equal
+    those of one solve at the batch's iteration count."""
+    out = {}
+    for dev in ("cpu", cuda):
+        if engine == "gmg":
+            op, _ = _rods_op(8, 2, dev)
+            lat = op.space.grid.lattice
+            ks = np.asarray([lat.k_cart((0.1, 0.0)), lat.point_cart("X"),
+                             lat.point_cart("M")])
+            sweep = BandSweep(op, nev=4, block=8, tol=1e-6, maxiter=400,
+                              device_tol=1e-4)
+        else:
+            if engine == "project-cheby":
+                op = _sphere_op(3, 2, dev)
+            else:
+                op = BlochCurlCurl(NedelecSpace.make(PeriodicGrid.make(
+                    make_lattice("FCC"), 3), 2), device=dev)
+            lat = op.space.grid.lattice
+            ks = np.asarray([2e-2 * lat.B[0], lat.point_cart("X"),
+                             lat.point_cart("M" if engine == "project-cheby"
+                                            else "W")])
+            solve = (op.make_spectral_solve_fn() if engine == "spectral"
+                     else op.make_solve_fn(deflation=engine))
+            sweep = BandSweep(op, solve, nev=4, block=8, tol=1e-6,
+                              maxiter=200,
+                              device_tol=1e-3 if engine == "spectral"
+                              else 1e-4)
+        nd0, h10 = nd_apply.launches, h1_apply.launches
+        out[str(dev)] = (sweep.run(ks), nd_apply.launches - nd0,
+                         h1_apply.launches - h10)
+    (rc, _, _), (rg, nd, h1) = out["cpu"], out[str(cuda)]
+    assert np.all(np.abs(rg.iterations - rc.iterations) <= 1)
+    top = np.abs(rc.eigenvalues).max(axis=1, keepdims=True)
+    assert np.max(np.abs(rg.eigenvalues - rc.eigenvalues) / np.maximum(
+        np.abs(rc.eigenvalues), 1e-2 * top)) < 1e-6
+    it = int(rg.iterations.max())
+    if engine in ("project", "project-cheby"):
+        # the projector on X0, two a iteration (M-half each), the start
+        # whitening and the deflated M X (M-half), the fused (A, M) once
+        # an iteration and twice a 16-iteration segment
+        assert nd == (1 + 2 * it) + (1 + it) + it + 2 * -(-it // 16)
+    elif engine == "gmg":
+        v = sweep.gmg.launches_per_vcycle()
+        assert h1 == v * it + it + 2 * -(-it // 16) + 1
+    else:
+        assert nd == h1 == 0
 
 
 def test_element_kernels_refuse_other_inputs(cuda):
