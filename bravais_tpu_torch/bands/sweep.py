@@ -27,23 +27,34 @@ deflation), and so does the built-in solve with any preconditioner (the
 Jacobi diagonal per k, the geometric-multigrid V-cycle with a k table, a
 caller's preconditioner given the k table) on a ``BlochHelmholtz`` or a
 ``BlochCurlCurl``. The k of a chunk step in lockstep and a k that is done
-is frozen (``chunk=1`` solves the k one at a time). Each k of a chunk is
-then refined on the host. With a ``writer`` (``bands.io.BandWriter``) each
-finished k (``run_warm``) or chunk (``run``) is on disk at once, so a
-killed sweep resumes where it stopped.
+is frozen (``chunk=1`` solves the k one at a time).
 
-The reference overlaps the host refine of k (or of a chunk) with the
-device solve of the next (``bravais_tpu/bands/sweep.py`` ``run`` and
-``run_warm``); this host-driven loop still runs them one after the
-other. The chain/segment modes, the sharded sweeps and the near-Γ loose
-stop are not ported.
+Both sweeps overlap the host refine with the device, as the reference
+does (``bravais_tpu/bands/sweep.py`` ``run`` and ``run_warm``): the main
+thread solves k (or a chunk), copies what the refine needs to the host
+(the eigenvalues, residuals, iterations, the block support, the
+eigenvector rows of a field or built-in solve), hands those arrays to
+one worker thread that refines them, and solves the next k (or chunk)
+meanwhile (``run_warm`` starts it from the block still on the device).
+The worker touches no device tensor, so the refine does not wait behind
+the device's queue; the one exception is a spectral refine that falls
+back, which reads its k's block from the device then. Rows are collected
+in k order; with a ``writer`` (``bands.io.BandWriter``) each finished k
+(``run_warm``) or chunk (``run``) is on disk at once, so a killed sweep
+resumes where it stopped (a solve that raises still writes the k before
+it, once that k's refine is done). ``SweepResult.solve_s`` is the main
+thread's time in the solves and ``refine_s`` the worker's in the refine;
+the part of the refine hidden behind the solves is (solve_s + refine_s −
+wall_s) / refine_s. The chain/segment modes, the sharded sweeps and the
+near-Γ loose stop are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Iterator, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -68,7 +79,10 @@ class SweepResult:
     residuals   : (nk, nev) relative residuals (f64 certificates when
                   refined)
     wall_s      : wall time of the whole sweep, device work included
-    refine_s    : the part of ``wall_s`` spent in the host f64 refine
+    refine_s    : seconds of the host f64 refine (on the worker thread,
+                  beside the next solve)
+    solve_s     : seconds the main thread spent in the device solves,
+                  the copies of their outputs to the host included
     fallbacks   : k-points whose spectral refine failed its cross-check
                   (or had an empty support) and went to the host
                   Rayleigh–Ritz
@@ -84,6 +98,22 @@ class SweepResult:
     refine_s: float = 0.0
     fallbacks: int = 0
     eigenvectors: Optional[np.ndarray] = None
+    solve_s: float = 0.0
+
+
+class _Fetched(NamedTuple):
+    """One solve's outputs on the host, with a leading k axis: device
+    eigenvalues, iterations and residuals; the block support (spectral
+    solve, refine on) or None; the eigenvector rows the refine needs (or
+    None without a refine: a spectral solve's whole block left where the
+    solve put it, read only by a refine that falls back); the rows
+    ``keep_vectors`` keeps (or None)."""
+    lam: np.ndarray
+    its: np.ndarray
+    res: np.ndarray
+    sup: Optional[np.ndarray]
+    X: "np.ndarray | torch.Tensor | None"
+    vecs: Optional[np.ndarray]
 
 
 class BandSweep:
@@ -210,17 +240,19 @@ class BandSweep:
                             dtype=self.op.rdtype, device=self.op.device)
         return torch.complex(t[0], t[1])
 
-    def _refine_host(self, lam_d: np.ndarray, support, X: torch.Tensor,
-                     k):
+    def _refine_host(self, lam_d: np.ndarray, support, X, k):
         """f64 refine of one k-point; returns (eigenvalues, residuals,
         fell back). With a block ``support`` (spectral solve): the exact
         block refine, cross-checked against the device eigenvalues ``lam_d``;
         a failed check or an empty support falls back to the host
         Rayleigh–Ritz on all m rows of the eigenvector block ``X`` (a
         true band may sit in a guard row). Without (field or built-in
-        solve): the host Rayleigh–Ritz on the lowest nev+2 rows."""
+        solve): the host Rayleigh–Ritz on the lowest nev+2 rows. ``X`` is
+        a host array (the sweeps fetch it before the refine) or, with a
+        ``support``, the solve's block as a tensor, copied to the host
+        only if the refine falls back."""
         if support is None:
-            lam, res = host_rayleigh_ritz(self.op, X.cpu().numpy(), k,
+            lam, res = host_rayleigh_ritz(self.op, np.asarray(X), k,
                                           self.nev)
             return lam, res, False
         ref = self.solve_fn.refine_np(support, k, self.nev)
@@ -232,34 +264,109 @@ class BandSweep:
             if lam.size == lam_d.size and np.all(
                     np.abs(lam - lam_d) / sc < 3e-2):
                 return lam, res, False
-        lam, res = host_rayleigh_ritz(self.op, X.cpu().numpy(), k,
-                                      self.nev, rows=X.shape[0])
+        if torch.is_tensor(X):
+            X = X.cpu().numpy()
+        lam, res = host_rayleigh_ritz(self.op, X, k, self.nev,
+                                      rows=X.shape[0])
         return lam, res, True
 
-    def _refined(self, r, support, X, k, j=None):
-        """One k's row of the result from a solve's output ``r`` (and its
-        block ``support``; index ``j`` into a k-batched one): (eigenvalues,
-        iterations, residuals, seconds in the refine, fell back)."""
-        pick = (lambda t: t) if j is None else (lambda t: t[j])
-        lam = pick(r.eigenvalues).double().cpu().numpy()
-        res = pick(r.residual_norms).double().cpu().numpy()
-        its = int(pick(r.iterations))
-        dt, fell = 0.0, False
-        if self.refine:
-            sup = (pick(support).double().cpu().numpy()
-                   if support is not None else None)
-            t1 = time.perf_counter()
-            lam, res, fell = self._refine_host(lam, sup, X, k)
-            dt = time.perf_counter() - t1
-        return lam, its, res, dt, fell
+    def _fetch(self, r, support, batched: bool) -> _Fetched:
+        """One solve's outputs on the host, copied on the main thread
+        before the next solve is dispatched, so that the refine's worker
+        thread touches no device tensor. With ``batched`` every output
+        has a leading k axis; a single solve gets one of length 1."""
+        def lead(t):
+            return t if batched else t[None]
 
-    def _solve_refined(self, X, k):
-        """Solve at k from the block ``X`` and refine; returns (eigenvalues,
-        iterations, residuals, seconds in the refine, fell back, the
-        solve's eigenvector block on the device)."""
-        r, support = self.solve_fn(X, k, self.nev, self.tol, self.maxiter)
-        return (*self._refined(r, support, r.eigenvectors, k),
-                r.eigenvectors)
+        def host(t):
+            # A copy also on the CPU, where the next solve may reuse the
+            # solve's memory while the worker reads it.
+            return t.to("cpu", copy=True).numpy()
+        X = lead(r.eigenvectors)
+        sup = Xh = vecs = None
+        if self.refine:
+            if support is not None:
+                # The spectral refine's fallback takes all m rows: they
+                # stay where the solve left them, read only on a fallback.
+                sup = host(lead(support).double())
+                Xh = X
+            else:
+                # The host Rayleigh–Ritz takes the lowest nev+2.
+                Xh = host(X[:, :self.nev + 2])
+        if self.keep_vectors:
+            vecs = (Xh[:, :self.nev] if isinstance(Xh, np.ndarray)
+                    else host(X[:, :self.nev]))
+        return _Fetched(host(lead(r.eigenvalues).double()),
+                        np.reshape(np.asarray(r.iterations), -1),
+                        host(lead(r.residual_norms).double()), sup, Xh, vecs)
+
+    def _refine_chunk(self, got: _Fetched, ks) -> list:
+        """The rows of a fetched chunk, each k refined in turn (the worker
+        thread's job): per k (eigenvalues, iterations, residuals, seconds
+        in the refine, fell back)."""
+        rows = []
+        for j, k in enumerate(ks):
+            lam, res, dt, fell = got.lam[j], got.res[j], 0.0, False
+            if self.refine:
+                t1 = time.perf_counter()
+                lam, res, fell = self._refine_host(
+                    lam, None if got.sup is None else got.sup[j], got.X[j],
+                    k)
+                dt = time.perf_counter() - t1
+            rows.append((lam, int(got.its[j]), res, dt, fell))
+        return rows
+
+    def _pipelined(self, solves: Iterator, k_cart: np.ndarray, writer,
+                   k_index: Optional[np.ndarray]) -> SweepResult:
+        """Drive ``solves``, whose every step solves the next chunk of k
+        on the main thread and yields (its first index, its fetched
+        outputs), with each chunk's refine on one worker thread while the
+        main thread solves the next chunk. Chunks are collected, and
+        written through ``writer``, in k order; a refine's exception is
+        raised here once the chunks before it are written. A solve's
+        exception is raised once the chunk before it, if its refine
+        succeeded, is written."""
+        rows, vecs = [], [] if self.keep_vectors else None
+        solve_s = 0.0
+
+        def collect(s, got, fut):
+            part = fut.result()
+            rows.extend(part)
+            if vecs is not None:
+                vecs.extend(got.vecs)
+            if writer is not None:
+                idx = (k_index[s:s + len(part)] if k_index is not None
+                       else range(s, s + len(part)))
+                lam, its, res = (np.asarray(c) for c in list(zip(*part))[:3])
+                writer.write_chunk(idx, lam[:, :self.nev], its,
+                                   res[:, :self.nev])
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            pending = None
+            try:
+                while True:
+                    t1 = time.perf_counter()
+                    step = next(solves, None)
+                    solve_s += time.perf_counter() - t1
+                    if step is None:
+                        break
+                    s, got = step
+                    fut = pool.submit(self._refine_chunk, got,
+                                      k_cart[s:s + len(got.its)])
+                    if pending is not None:
+                        done, pending = pending, None
+                        collect(*done)
+                    pending = (s, got, fut)
+            except BaseException:
+                # The serial sweep had written the chunk before a failed
+                # solve: so is it here, once its refine is done.
+                if pending is not None and pending[2].exception() is None:
+                    collect(*pending)
+                raise
+            if pending is not None:
+                collect(*pending)
+        return self._result(rows, time.perf_counter() - t0, solve_s, vecs)
 
     def _rounded(self, k_cart) -> np.ndarray:
         """The k-points rounded to the device's real precision, as the
@@ -268,11 +375,11 @@ class BandSweep:
         rdtype = torch.empty((), dtype=self.op.rdtype).numpy().dtype
         return np.asarray(k_cart, rdtype)
 
-    def _result(self, rows, wall, vecs) -> SweepResult:
+    def _result(self, rows, wall, solve_s, vecs) -> SweepResult:
         lams, itss, ress, dts, fells = zip(*rows)
         return SweepResult(np.asarray(lams), np.asarray(itss, np.int32),
                            np.asarray(ress), wall_s=wall,
-                           refine_s=float(sum(dts)),
+                           refine_s=float(sum(dts)), solve_s=solve_s,
                            fallbacks=int(sum(fells)),
                            eigenvectors=(np.stack(vecs)
                                          if vecs is not None else None))
@@ -280,53 +387,37 @@ class BandSweep:
     def run_warm(self, k_cart: np.ndarray, writer=None,
                  k_index: Optional[np.ndarray] = None) -> SweepResult:
         """Sequential sweep, each k warm-started from the previous
-        eigenvector block. With ``writer``, every finished k is written
-        at once under its global index ``k_index[i]`` (default i)."""
+        eigenvector block, which stays on the device; k's host refine
+        runs while k+1 is solved. With ``writer``, every finished k is
+        written at once under its global index ``k_index[i]`` (default
+        i)."""
         k_cart = self._rounded(k_cart)
-        X = self._x0()
-        rows, vecs = [], [] if self.keep_vectors else None
-        t0 = time.perf_counter()
-        for i, k in enumerate(k_cart):
-            *row, X = self._solve_refined(X, k)
-            rows.append(row)
-            if vecs is not None:
-                vecs.append(X[:self.nev].cpu().numpy())
-            if writer is not None:
-                lam, its, res = row[:3]
-                gi = int(k_index[i]) if k_index is not None else i
-                writer.write_chunk([gi], lam[None, :self.nev], [its],
-                                   res[None, :self.nev])
-        return self._result(rows, time.perf_counter() - t0, vecs)
+
+        def solves(X):
+            for i, k in enumerate(k_cart):
+                r, support = self.solve_fn(X, k, self.nev, self.tol,
+                                           self.maxiter)
+                X = r.eigenvectors
+                yield i, self._fetch(r, support, batched=False)
+        return self._pipelined(solves(self._x0()), k_cart, writer, k_index)
 
     def run(self, k_cart: np.ndarray, chunk: Optional[int] = None,
             writer=None, k_index: Optional[np.ndarray] = None
             ) -> SweepResult:
         """Cold sweep: every k solved from the seeded start block, in
         chunks of ``chunk`` k-points (default all). A chunk is one
-        k-batched solve (module docstring); each k is then refined on the
-        host. With ``writer``, each finished chunk is
-        written at once under the global indices ``k_index`` (default
-        0..nk-1)."""
+        k-batched solve (module docstring); its k are then refined on the
+        host one after the other, while the next chunk is solved. With
+        ``writer``, each finished chunk is written at once under the
+        global indices ``k_index`` (default 0..nk-1)."""
         k_cart = self._rounded(k_cart)
         nk = len(k_cart)
         chunk = chunk or nk
-        X0 = self._x0()
         bsolve = self._batched_solve()
-        rows, vecs = [], [] if self.keep_vectors else None
-        t0 = time.perf_counter()
-        for s in range(0, nk, chunk):
-            ks = k_cart[s:s + chunk]
-            r, support = bsolve(X0, ks, self.nev, self.tol, self.maxiter)
-            part = [self._refined(r, support, r.eigenvectors[j], k, j)
-                    for j, k in enumerate(ks)]
-            if vecs is not None:
-                vecs.extend(r.eigenvectors[:, :self.nev].cpu().numpy())
-            rows.extend(part)
-            if writer is not None:
-                gidx = (k_index[s:s + len(part)] if k_index is not None
-                        else range(s, s + len(part)))
-                lam, its, res = (np.asarray(c) for c in
-                                 list(zip(*part))[:3])
-                writer.write_chunk(gidx, lam[:, :self.nev], its,
-                                   res[:, :self.nev])
-        return self._result(rows, time.perf_counter() - t0, vecs)
+
+        def solves(X0):
+            for s in range(0, nk, chunk):
+                r, support = bsolve(X0, k_cart[s:s + chunk], self.nev,
+                                    self.tol, self.maxiter)
+                yield s, self._fetch(r, support, batched=True)
+        return self._pipelined(solves(self._x0()), k_cart, writer, k_index)

@@ -222,7 +222,8 @@ def run(cfg, log=print):
         plot_bands(kp, writer.eigenvalues,
                    path=pathlib.Path(cfg.out) / "bands.png",
                    title=f"{lat.variant} {cfg.problem.upper()}")
-    log(f"# done: wall {res.wall_s:.2f}s (host refine {res.refine_s:.2f}s), "
+    log(f"# done: wall {res.wall_s:.2f}s (device solves {res.solve_s:.2f}s,"
+        f" host refine {res.refine_s:.2f}s beside them), "
         f"total {time.perf_counter() - t0:.1f}s, "
         f"mean iters {float(np.mean(res.iterations)):.1f}")
     return writer

@@ -29,11 +29,12 @@ What is here:
   projectors and ``make_solve_fn`` (the reference's ``deflation`` values
   "project" and "project-cheby", ``precond="fastdiag"``);
 * the operator diagonals ``diag_A``/``diag_M`` (the built-in sweep's
-  Jacobi preconditioner).
+  Jacobi preconditioner);
+* the f64 gradient component ``gradient_component_np`` (exact for
+  element-invariant ε, twin-preconditioned CG on the true L otherwise).
 
 Not ported: the reference's other deflations and preconditioners
-(``fd_precond_cg`` among them) and the varying-ε branch of
-``gradient_component_np``.
+(``fd_precond_cg`` among them).
 """
 
 from __future__ import annotations
@@ -238,19 +239,50 @@ class BlochCurlCurl:
                                                    sp.p, ph[c])
         return acc
 
-    def gradient_component_np(self, u, k) -> np.ndarray:
-        """f64 host P u = G L⁻¹ Gᴴ M u by the exact fast-diagonal L
-        solve, for element-invariant coefficients (the refine's
-        projection of a block (m, 3, N₁, N₂, N₃)). The reference's
-        varying-ε branch (mean-twin-preconditioned CG) is not ported; the
-        varying-ε refine shifts the gradients instead."""
-        if not self._coef_elem_invariant():
-            raise ValueError("gradient_component_np is exact only for "
-                             "element-invariant coefficients")
+    def gradient_component_np(self, u, k, cg_iters: int = 12) -> np.ndarray:
+        """f64 host P u = G L⁻¹ Gᴴ M u of a field (3, N₁, N₂, N₃) or a
+        block (m, 3, N₁, N₂, N₃): the exact fast-diagonal L solve when ε
+        is element-invariant (the refine's projection, the whole block
+        at once); for varying ε the mean-ε twin solve polished by
+        ``cg_iters`` steps of conjugate gradients on the true L,
+        preconditioned by that twin, row by row."""
         k = np.asarray(k, np.float64)
+        u = np.asarray(u, np.complex128)
         lsolve = self.fastdiag_L().solver_np([("L", 1.0)], k)
+        if self._coef_elem_invariant():
+            rhs = self.apply_GkH_np(self.apply_M_np(u, k), k)
+            return self.apply_Gk_np(lsolve(rhs), k)
+        if u.ndim == 5:
+            return np.stack([self._grad_comp_np_cg(x, k, lsolve, cg_iters)
+                             for x in u])
+        return self._grad_comp_np_cg(u, k, lsolve, cg_iters)
+
+    def _grad_comp_np_cg(self, u, k, lsolve, cg_iters):
+        """One field's gradient component at varying ε: L φ = Gᴴ M u by
+        CG on L = Gᴴ M_ε G from the twin solve φ₀ = L̃⁻¹ Gᴴ M u,
+        preconditioned by L̃⁻¹; returns G φ."""
+        def L(x):
+            return self.apply_GkH_np(self.apply_M_np(self.apply_Gk_np(x, k),
+                                                     k), k)
+
         rhs = self.apply_GkH_np(self.apply_M_np(u, k), k)
-        return self.apply_Gk_np(lsolve(rhs), k)
+        phi = lsolve(rhs)
+        r = rhs - L(phi)
+        p_ = lsolve(r)
+        rz = np.vdot(r, p_)
+        for _ in range(cg_iters):
+            Ap = L(p_)
+            denom = np.vdot(p_, Ap)
+            if abs(denom) < 1e-300 or abs(rz) < 1e-300:
+                break
+            alpha = rz / denom
+            phi = phi + alpha * p_
+            r = r - alpha * Ap
+            z = lsolve(r)
+            rz_new = np.vdot(r, z)
+            p_ = z + (rz_new / rz) * p_
+            rz = rz_new
+        return self.apply_Gk_np(phi, k)
 
     # -- device applies (field engine) ----------------------------------------
 

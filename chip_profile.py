@@ -9,10 +9,11 @@ configures them.
 
 For each sweep (one cold pass first) it prints, one line each:
 
-1. the pass: wall, host refine, device solve split into per-k setup and
-   LOBPCG (CUDA-synchronised host clock), time per LOBPCG iteration, the
-   rate over all nk k-points and the steady rate over k-points 2..nk
-   (the rate ``bench.py`` reports for its warm mode);
+1. the pass: wall, host refine (on the sweep's worker thread, beside the
+   next k's solve) and its hidden share, device solve split into per-k
+   setup and LOBPCG (CUDA-synchronised host clock on the main thread),
+   time per LOBPCG iteration with the refine beside it and in a second
+   pass with the refine off, the rate over all nk k-points;
 2. the per-k setup pieces at one k (CUDA events, median of 20) and, for
    the field engine, the pieces of one LOBPCG iteration: the
    preconditioner, the fused (A, M) apply, the Chebyshev gradient
@@ -35,14 +36,44 @@ operations per lockstep iteration, the busy time and idle share of the
 traced window, the untraced wall of the batched solve against the same
 k solved one at a time, and the peak device memory of the batched solve.
 
+    git archive <parent commit> | (mkdir -p .chip_tmp/parent &&
+        tar -x -C .chip_tmp/parent)
+    python3 chip_profile.py --overlap .chip_tmp/parent
+
+measures what the sweeps' refine overlap gains against the tree before
+it (the argument: a checkout of that tree): six processes in turns
+parent, this tree, this tree, parent, parent, this tree, each importing
+its own tree's package and running, for the headline, config 3, config 1
+and config 2 TM as this script sets them up, one cold warm pass and two
+timed ones, each with its wall and ``refine_s`` (and, where the tree has
+them, ``solve_s``, the hidden share and the main thread's seconds in
+``BandSweep._fetch``, its copies to the host); then each path's median
+walls and their ratio, this tree over the parent. First, which host
+calls of the refine hold the interpreter lock: a pure-Python loop's time
+beside each call, running in a loop on a second thread, over its time
+alone (1 for a call that releases the lock, about 2 for one that holds
+it).
+
+    python3 chip_profile.py --switch
+
+times the same four paths' warm passes as the serial composition and
+overlapped at several interpreter switch intervals (5 ms is CPython's
+default), twice in turns, the headline also with its spectral refine's
+per-block eigh answered by numpy (which releases the lock).
+
 Every figure is measured in this run; the card's name and power limit
 come first.
 """
 
 import argparse
+import json
+import os
+import statistics
 import subprocess
 import sys
+import threading
 import time
+from pathlib import Path
 
 import chip_smoke  # sets the host BLAS thread cap before numpy loads
 
@@ -70,39 +101,49 @@ def timed(fn, into):
 
 
 def phase_pass(tag, kc, sweep, make_solve):
-    """One warm pass with the solve and its LOBPCG timed. ``make_solve``
-    makes the engine's solve, or is None for the sweep's built-in one."""
+    """One warm pass with the solve and its LOBPCG timed on the main
+    thread (the refine of k runs on the sweep's worker thread beside the
+    solve of k+1), then the same pass with the refine off: the LOBPCG's
+    ms per iteration with the refine beside it and alone (what the
+    worker's share of the interpreter costs the host-driven solve).
+    ``make_solve`` makes the engine's solve, or is None for the sweep's
+    built-in one."""
     from bravais_tpu_torch.bands import sweep as sweep_mod
     from bravais_tpu_torch.eigen import lobpcg as lobpcg_mod
 
-    t_solve, t_lob, t_ref = [], [], []
     plain = lobpcg_mod.lobpcg
-    lobpcg_mod.lobpcg = sweep_mod.lobpcg = timed(plain, t_lob)
     untimed = sweep.solve_fn
-    try:
-        solve = make_solve() if make_solve else untimed  # binds the timed
-        wsolve = timed(solve, t_solve)                   # lobpcg
-        if hasattr(solve, "refine_np"):
-            wsolve.refine_np = solve.refine_np
-        sweep.solve_fn = wsolve
-        sweep._refine_host = timed(sweep._refine_host, t_ref)
-        res = sweep.run_warm(kc)
-    finally:
-        lobpcg_mod.lobpcg = sweep_mod.lobpcg = plain
-        sweep.solve_fn = make_solve() if make_solve else untimed
-        del sweep._refine_host            # back to the class method
+    runs = []
+    for refine in (True, False):
+        t_solve, t_lob = [], []
+        lobpcg_mod.lobpcg = sweep_mod.lobpcg = timed(plain, t_lob)
+        try:
+            solve = make_solve() if make_solve else untimed  # binds the
+            wsolve = timed(solve, t_solve)                   # timed lobpcg
+            if hasattr(solve, "refine_np"):
+                wsolve.refine_np = solve.refine_np
+            sweep.solve_fn = wsolve
+            sweep.refine = refine
+            res = sweep.run_warm(kc)
+        finally:
+            lobpcg_mod.lobpcg = sweep_mod.lobpcg = plain
+            sweep.solve_fn = make_solve() if make_solve else untimed
+            sweep.refine = True
+        iters = int(res.iterations.sum())
+        runs.append((res, sum(t_solve), sum(t_lob), iters))
+    (res, t_solve, t_lob, iters), (alone, _, t_lob1, iters1) = runs
     nk = len(kc)
-    iters = int(res.iterations.sum())
-    per_k = [s + r for s, r in zip(t_solve, t_ref)]
+    hidden = (res.solve_s + res.refine_s - res.wall_s) / res.refine_s
     chip_smoke.log(tag, f"wall {res.wall_s:.4f} s for nk={nk}: host "
-                   f"refine {sum(t_ref):.4f} s, device solve "
-                   f"{sum(t_solve):.4f} s (setup and block transforms "
-                   f"{sum(t_solve) - sum(t_lob):.4f} s, LOBPCG "
-                   f"{sum(t_lob):.4f} s over {iters} iterations = "
-                   f"{1e3 * sum(t_lob) / iters:.3f} ms/iter); "
-                   f"{nk / res.wall_s:.4f} eig/s over all k, steady "
-                   f"{(nk - 1) / sum(per_k[1:]):.4f} eig/s over k 2..{nk} "
-                   f"(first k {per_k[0]:.4f} s, {res.iterations[0]} iters)")
+                   f"refine {res.refine_s:.4f} s on the worker (hidden "
+                   f"share {hidden:.4f}), device solve {t_solve:.4f} s "
+                   f"(solve_s {res.solve_s:.4f} s; setup and block "
+                   f"transforms {t_solve - t_lob:.4f} s, LOBPCG "
+                   f"{t_lob:.4f} s over {iters} iterations = "
+                   f"{1e3 * t_lob / iters:.3f} ms/iter with the refine "
+                   f"beside it, {1e3 * t_lob1 / iters1:.3f} ms/iter alone "
+                   f"over {iters1}); {nk / res.wall_s:.4f} eig/s over all "
+                   f"k; the pass with the refine off {alone.wall_s:.4f} s")
     return res
 
 
@@ -371,11 +412,226 @@ def main_batched(dev):
     return 0
 
 
+SWITCH_INTERVALS = (5e-3, 1e-3, 2e-4, 5e-5, 1e-5)
+
+
+def numpy_subset_eigh(eigh):
+    """``scipy.linalg.eigh`` with its ``subset_by_index`` calls answered
+    by ``numpy.linalg.eigh`` (every pair, then the subset), which releases
+    the interpreter lock while it computes; other calls go to ``eigh``."""
+    import numpy as np
+
+    def w(a, *args, subset_by_index=None, **kw):
+        if subset_by_index is None:
+            return eigh(a, *args, **kw)
+        lo, hi = subset_by_index
+        lam, V = np.linalg.eigh(a)
+        return lam[lo:hi + 1], V[:, lo:hi + 1]
+    return w
+
+
+def main_switch(dev):
+    """``--switch``: each path's warm passes as the serial composition
+    and overlapped at each interpreter switch interval of
+    ``SWITCH_INTERVALS`` (5 ms is CPython's default), in two rounds; the
+    headline also with its spectral refine's per-block eigh answered by
+    numpy (``numpy_subset_eigh``)."""
+    import scipy.linalg
+    from bravais_tpu_torch.bands import sweep as sweep_mod
+
+    default = sys.getswitchinterval()
+    real_pool, real_eigh = sweep_mod.ThreadPoolExecutor, scipy.linalg.eigh
+    setups = (("headline", lambda: chip_smoke.headline(dev)[1::2]),
+              ("config3", lambda: chip_smoke.dielectric(dev)[1::2]),
+              ("config1", lambda: chip_smoke.scalar_setup(dev)[::2]),
+              ("config2", lambda: chip_smoke.rods_setup(dev)[::2]))
+    for path, setup in setups:
+        kc, sweep = setup()
+        sweep.run_warm(kc)                   # cold pass
+        modes = [("serial", None, False)] + [
+            ("overlapped", iv, False) for iv in SWITCH_INTERVALS]
+        if path == "headline":
+            modes += [("serial", None, True), ("overlapped", 5e-3, True),
+                      ("overlapped", 5e-5, True)]
+        walls = {}
+        for _ in range(2):
+            for mode, iv, np_eigh in modes:
+                sweep_mod.ThreadPoolExecutor = (chip_smoke.SerialPool
+                                                if iv is None else real_pool)
+                scipy.linalg.eigh = (numpy_subset_eigh(real_eigh) if np_eigh
+                                     else real_eigh)
+                sys.setswitchinterval(iv or default)
+                try:
+                    res = sweep.run_warm(kc)
+                finally:
+                    sweep_mod.ThreadPoolExecutor = real_pool
+                    scipy.linalg.eigh = real_eigh
+                    sys.setswitchinterval(default)
+                tag = (f"{mode}{'' if iv is None else f' {iv:g} s'}"
+                       f"{', numpy eigh' if np_eigh else ''}")
+                walls.setdefault(tag, []).append(res.wall_s)
+                chip_smoke.log("switch", f"{path} {tag}: "
+                               f"{chip_smoke.overlap(res)}, iterations "
+                               f"{int(res.iterations.sum())}")
+        ser = min(walls["serial"])
+        chip_smoke.log("switch", f"{path}: best wall over the serial "
+                       f"composition's best: " + ", ".join(
+                           f"{tag} {min(w) / ser:.4f}"
+                           for tag, w in walls.items()))
+        del sweep
+    return 0
+
+
+def phase_gil():
+    """Which host calls of the refine hold the interpreter lock: a
+    pure-Python loop's time while a second thread runs the call in a
+    loop, over the loop's time alone."""
+    import numpy as np
+    import scipy.linalg
+
+    rng = np.random.default_rng(0)
+    Z = rng.standard_normal((192, 192)) + 1j * rng.standard_normal((192, 192))
+    H = Z @ Z.conj().T + 192 * np.eye(192)
+    L = np.tril(H)
+
+    def loop():
+        t = time.perf_counter()
+        s = 0
+        for i in range(3_000_000):
+            s += i
+        return time.perf_counter() - t
+
+    calls = {
+        "scipy.linalg.eigh 192 subset evr (spectral refine)":
+            lambda: scipy.linalg.eigh(H, subset_by_index=[0, 11],
+                                      driver="evr"),
+        "scipy.linalg.eigh 192": lambda: scipy.linalg.eigh(H),
+        "scipy.linalg.cholesky 192": lambda: scipy.linalg.cholesky(
+            H, lower=True),
+        "scipy.linalg.solve_triangular 192": lambda:
+            scipy.linalg.solve_triangular(L, H, lower=True),
+        "numpy.linalg.eigh 192": lambda: np.linalg.eigh(H),
+        "numpy matmul 192": lambda: H @ H}
+    alone = statistics.median(loop() for _ in range(3))
+    out = []
+    for name, fn in calls.items():
+        stop = threading.Event()
+
+        def spin():
+            while not stop.is_set():
+                fn()
+        th = threading.Thread(target=spin)
+        th.start()
+        try:
+            beside = loop()
+        finally:
+            stop.set()
+            th.join()
+        out.append(f"{name} {beside / alone:.2f}")
+    chip_smoke.log("gil", f"a Python loop's time beside each call over its "
+                   f"time alone ({alone:.3f} s): " + ", ".join(out))
+
+
+OVERLAP_TURNS = "PCCPPC"
+OVERLAP_PASSES = 2
+
+
+def warm_passes(dev, tree):
+    """One process of ``--overlap``: a cold warm pass and
+    ``OVERLAP_PASSES`` timed ones of each path, with the package
+    imported from ``tree``; one JSON line per timed pass."""
+    import bravais_tpu_torch
+    from bravais_tpu_torch.utils import cuda_build
+
+    t0 = time.perf_counter()
+    cuda_build.build_all()
+    print(json.dumps({"tree": tree, "package": bravais_tpu_torch.__file__,
+                      "build_s": time.perf_counter() - t0}), flush=True)
+    setups = (("headline", lambda: chip_smoke.headline(dev)[1::2]),
+              ("config3", lambda: chip_smoke.dielectric(dev)[1::2]),
+              ("config1", lambda: chip_smoke.scalar_setup(dev)[::2]),
+              ("config2", lambda: chip_smoke.rods_setup(dev)[::2]))
+    for path, setup in setups:
+        kc, sweep = setup()
+        fetch = []
+        if hasattr(sweep, "_fetch"):
+            sweep._fetch = timed(sweep._fetch, fetch)
+        sweep.run_warm(kc)                   # cold pass
+        for _ in range(OVERLAP_PASSES):
+            fetch.clear()
+            res = sweep.run_warm(kc)
+            print(json.dumps({
+                "path": path, "wall_s": res.wall_s,
+                "refine_s": res.refine_s,
+                "solve_s": getattr(res, "solve_s", None),
+                "fetch_s": sum(fetch) if hasattr(sweep, "_fetch") else None,
+                "iterations": int(res.iterations.sum())}), flush=True)
+        del sweep
+
+
+def main_overlap(parent):
+    """``--overlap PARENT``: the lock probe, then the warm passes of the
+    parent's tree and this one in turns ``OVERLAP_TURNS``, one process
+    each."""
+    phase_gil()
+    trees = {"P": str(Path(parent).resolve()),
+             "C": str(Path(__file__).resolve().parent)}
+    walls = {}
+    for turn in OVERLAP_TURNS:
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, __file__, "--warm-passes",
+                            trees[turn]], capture_output=True, text=True,
+                           timeout=900, env=dict(os.environ))
+        if r.returncode:
+            raise RuntimeError(f"warm passes of {trees[turn]} exited "
+                               f"{r.returncode}: {r.stderr[-3000:]}")
+        for line in r.stdout.splitlines():
+            if not line.startswith("{"):
+                continue
+            rec = json.loads(line)
+            if "path" not in rec:
+                chip_smoke.log("overlap", f"{turn}: package "
+                               f"{rec['package']}, kernels built in "
+                               f"{rec['build_s']:.2f} s")
+                continue
+            walls.setdefault((rec["path"], turn), []).append(rec["wall_s"])
+            extra = ""
+            if rec["solve_s"] is not None:
+                hidden = ((rec["solve_s"] + rec["refine_s"] - rec["wall_s"])
+                          / rec["refine_s"])
+                extra = (f", solve_s {rec['solve_s']:.4f}, hidden share "
+                         f"{hidden:.4f}, fetch_s {rec['fetch_s']:.4f}")
+            chip_smoke.log("overlap", f"{turn} {rec['path']}: wall_s "
+                           f"{rec['wall_s']:.4f}, refine_s "
+                           f"{rec['refine_s']:.4f}{extra}, iterations "
+                           f"{rec['iterations']}")
+        chip_smoke.log("overlap", f"{turn}: process "
+                       f"{time.perf_counter() - t0:.1f} s")
+    for path in ("headline", "config3", "config1", "config2"):
+        p, c = (statistics.median(walls[(path, t)]) for t in "PC")
+        chip_smoke.log("overlap", f"{path}: median wall parent {p:.4f} s, "
+                       f"this tree {c:.4f} s ({c / p:.4f}x; "
+                       f"{len(walls[(path, 'P')])} passes each)")
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batched", action="store_true",
-                    help="trace the k-batched solves instead")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--batched", action="store_true",
+                      help="trace the k-batched solves instead")
+    mode.add_argument("--overlap", metavar="PARENT",
+                      help="time the warm passes of this tree against "
+                      "those of the checkout PARENT instead")
+    mode.add_argument("--switch", action="store_true",
+                      help="time the overlapped warm passes at several "
+                      "interpreter switch intervals instead")
+    mode.add_argument("--warm-passes", metavar="TREE",
+                      help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.warm_passes:
+        # This process's package is TREE's (the parent's or this one).
+        sys.path.insert(0, args.warm_passes)
     import torch
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device; nothing was run",
@@ -388,9 +644,15 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     chip_smoke.log("device", smi)
+    if args.overlap:
+        return main_overlap(args.overlap)
     dev = torch.device("cuda", 0)
     if args.batched:
         return main_batched(dev)
+    if args.warm_passes:
+        return warm_passes(dev, args.warm_passes)
+    if args.switch:
+        return main_switch(dev)
     _, kc, op, sweep = chip_smoke.headline(dev)
     sweep.run_warm(kc)   # cold pass: build, caches, allocator
     res = phase_pass("pass", kc, sweep, op.make_spectral_solve_fn)

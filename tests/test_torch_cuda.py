@@ -571,3 +571,68 @@ def test_cli_on_cuda(cuda, tmp_path):
     rows = [json.loads(x) for x in r.stdout.splitlines() if x.startswith("{")]
     assert [x["k_index"] for x in rows] == [0, 1, 2, 3]
     assert all(np.all(np.isfinite(x["eigenvalues"])) for x in rows)
+
+
+_D2H = ("cpu", "to", "numpy", "item", "tolist", "__int__", "__float__",
+        "__bool__", "__array__")
+
+
+@pytest.mark.parametrize("engine", ["spectral", "field"])
+def test_overlapped_run_warm_on_cuda_equals_serial(cuda, engine,
+                                                   monkeypatch):
+    """The overlapped ``run_warm`` on the card equals the serial
+    composition (per k: the solve, its outputs to the host, the refine,
+    then the next solve) exactly, and every read of a card tensor (a copy
+    to the host, a scalar) happens on the main thread: the refine's
+    worker touches none (no refine falls back here; one that did would
+    read its k's block). Spectral: FCC n=3 p=2, 4 k; field: CUB ε-sphere
+    n=4 p=2, project-cheby, 3 k."""
+    import threading
+    if engine == "spectral":
+        lat = make_lattice("FCC")
+        op = BlochCurlCurl(NedelecSpace.make(PeriodicGrid.make(lat, 3), 2),
+                           device=cuda)
+        sweep = BandSweep(op, op.make_spectral_solve_fn(), nev=4, block=8,
+                          tol=1e-6, maxiter=250, device_tol=1e-3,
+                          keep_vectors=True)
+        kc = kpath(lat, npts=4, path=[["X", "W", "L"]]).k_cart
+    else:
+        lat = make_lattice("CUB")
+        op = _sphere_op(4, 2, cuda)
+        sweep = BandSweep(op, op.make_solve_fn(), nev=5, block=9, tol=1e-6,
+                          maxiter=250, device_tol=1e-4, keep_vectors=True)
+        kc = np.asarray([lat.k_cart(f) for f in ((0.25, 0.0, 0.0),
+                                                 (0.5, 0.0, 0.0),
+                                                 (0.5, 0.25, 0.0))])
+    reads = []
+
+    def spy(name):
+        orig = getattr(torch.Tensor, name)
+
+        def wrapped(self, *a, **kw):
+            if self.is_cuda:
+                reads.append((name, threading.current_thread()))
+            return orig(self, *a, **kw)
+        return wrapped
+
+    for name in _D2H:
+        monkeypatch.setattr(torch.Tensor, name, spy(name))
+    got = sweep.run_warm(kc)
+    monkeypatch.undo()
+    assert reads and all(t is threading.main_thread() for _, t in reads)
+
+    k32 = sweep._rounded(kc)
+    X = sweep._x0()
+    for i, k in enumerate(k32):
+        r, sup = sweep.solve_fn(X, k, sweep.nev, sweep.tol, sweep.maxiter)
+        X = r.eigenvectors
+        lam, res, fell = sweep._refine_host(
+            r.eigenvalues.double().cpu().numpy(),
+            None if sup is None else sup.double().cpu().numpy(),
+            X.cpu().numpy(), k)
+        assert int(r.iterations) == got.iterations[i]
+        np.testing.assert_array_equal(got.eigenvalues[i], lam)
+        np.testing.assert_array_equal(got.residuals[i], res)
+        np.testing.assert_array_equal(got.eigenvectors[i],
+                                      X[:sweep.nev].cpu().numpy())
+    assert got.fallbacks == 0

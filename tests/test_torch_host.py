@@ -115,7 +115,10 @@ def test_import_keeps_jax_out():
             "bravais_tpu_torch.eigen.precond, "
             "bravais_tpu_torch.eigen.refine, "
             "bravais_tpu_torch.eigen.jacobi_cuda, "
-            "bravais_tpu_torch.utils.timing; "
+            "bravais_tpu_torch.utils.timing, "
+            "bravais_tpu_torch.utils.native, "
+            "bravais_tpu_torch.utils.profiling, "
+            "bravais_tpu_torch.utils.debug; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'bravais_tpu.'))] "
             "+ [m for m in ('bravais_tpu', 'triton') if m in sys.modules]; "
