@@ -4,13 +4,18 @@ Port of ``bravais_tpu/bands/io.py`` (host NumPy; the file names and keys
 are the reference's, so a run directory written by either package loads
 with the other's ``load_bands``): results land in ``<run_dir>/bands.npz``
 plus a JSON manifest holding the config hash and the finished k-points,
-so a killed sweep resumes where it stopped.
+so a killed sweep resumes where it stopped. Both files are replaced
+atomically, the table first (the reference writes ``bands.npz`` in place,
+so a kill during that write leaves a truncated table under a manifest
+that names finished k, and its resume fails).
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
+import os
 import pathlib
 from typing import Dict, List, Optional, Sequence
 
@@ -18,6 +23,21 @@ import numpy as np
 
 __all__ = ["BandWriter", "load_bands", "plot_bands", "write_csv",
            "save_modes", "write_vtk"]
+
+
+@contextlib.contextmanager
+def _replacing(path: pathlib.Path):
+    """An open binary file whose content replaces ``path`` atomically when
+    the block ends (``os.replace`` of a temporary in the same directory);
+    if the block raises, ``path`` is left as it was."""
+    tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
+    try:
+        with open(tmp, "wb") as f:
+            yield f
+        os.replace(tmp, path)
+    finally:
+        if tmp.exists():
+            tmp.unlink()
 
 
 def _config_hash(config: Dict) -> str:
@@ -67,9 +87,16 @@ class BandWriter:
         self.residuals[idx] = np.asarray(residuals)
         self.manifest["finished"] = sorted(
             set(self.manifest["finished"]) | set(idx))
-        np.savez(self.bands_path, eigenvalues=self.eigenvalues,
-                 iterations=self.iterations, residuals=self.residuals)
-        self.manifest_path.write_text(json.dumps(self.manifest, default=str))
+        # Each file is written to a temporary beside it and renamed over
+        # it, the table before the manifest: a write cut at any point
+        # leaves both files whole, and a manifest never names a k that
+        # its table lacks (the table may hold a chunk the manifest does
+        # not name yet, which a resume recomputes).
+        with _replacing(self.bands_path) as f:
+            np.savez(f, eigenvalues=self.eigenvalues,
+                     iterations=self.iterations, residuals=self.residuals)
+        with _replacing(self.manifest_path) as f:
+            f.write(json.dumps(self.manifest, default=str).encode())
 
     @property
     def finished(self) -> List[int]:

@@ -1,12 +1,13 @@
 """k-path band sweeps: warm-started and cold.
 
 Port of ``BandSweep`` (the refine and ``device_tol`` rules, the
-preconditioner choice, the built-in solve, ``_refine_host``, ``run_warm``
-and ``run``) from ``bravais_tpu/bands/sweep.py``. Each k is solved on the
-device, then refined in f64 on the host. The solve is an engine's
-``solve_fn`` or, without one, the built-in LOBPCG on the operator's
-matrix-free ``apply_A``/``apply_M`` with its fused ``apply_AM`` and a
-Jacobi or geometric-multigrid preconditioner. The refine:
+preconditioner choice, the built-in solve, ``_refine_host``, ``run_warm``,
+``run`` and ``run_warm_sharded``) from ``bravais_tpu/bands/sweep.py``.
+Each k is solved on the device, then refined in f64 on the host. The
+solve is an engine's ``solve_fn`` or, without one, the built-in LOBPCG
+on the operator's matrix-free ``apply_A``/``apply_M`` with its fused
+``apply_AM`` and a Jacobi or geometric-multigrid preconditioner. The
+refine:
 
 * a SPECTRAL solve hands over the tiny (m, B) block support, and the
   exact f64 block refine (``solve_fn.refine_np``) replaces the float32
@@ -45,8 +46,20 @@ resumes where it stopped (a solve that raises still writes the k before
 it, once that k's refine is done). ``SweepResult.solve_s`` is the main
 thread's time in the solves and ``refine_s`` the worker's in the refine;
 the part of the refine hidden behind the solves is (solve_s + refine_s −
-wall_s) / refine_s. The chain/segment modes, the sharded sweeps and the
-near-Γ loose stop are not ported.
+wall_s) / refine_s.
+
+Sharded over a ``torch.distributed`` group (``mesh``, a
+``parallel.mesh.KMesh``; every rank calls the sweep alike), as the
+reference shards the k axis over a device mesh: ``run(k, mesh=)`` pads
+each chunk with its last k to a multiple of the group size and each rank
+solves its share as one k-batched solve on its own device, refining it on
+its own worker thread; ``run_warm_sharded`` cuts the path into contiguous
+segments, each warm-started from its own previous block, one k-batched
+solve per path position over the rank's segments (without a mesh: every
+segment on one device). Each chunk's (or position's) rows are gathered
+from every rank in k order and written by rank 0; every rank returns the
+same ``SweepResult``. The chain modes (``warm-chain``, ``warm-seg``) and
+the near-Γ loose stop are not ported.
 """
 
 from __future__ import annotations
@@ -62,6 +75,7 @@ import torch
 from bravais_tpu_torch.eigen.lobpcg import PROD_RR_TOL, lobpcg
 from bravais_tpu_torch.eigen.precond import jacobi
 from bravais_tpu_torch.eigen.refine import host_rayleigh_ritz
+from bravais_tpu_torch.parallel.mesh import replicated, shard_k
 
 __all__ = ["BandSweep", "SweepResult"]
 
@@ -205,10 +219,10 @@ class BandSweep:
         """The built-in solve: LOBPCG on (A(k), M) with the fused (A, M)
         element apply and the resolved preconditioner; no block support.
         At a k table (nk, d) one k-batched LOBPCG from X0 (m, *dof),
-        shared by every k."""
+        shared by every k, or (nk, m, *dof), a start block per k."""
         op = self.op
         batched = np.ndim(k) == 2
-        if batched:
+        if batched and X0.ndim == 1 + len(self._dof_shape()):
             X0 = X0.expand((len(k),) + tuple(X0.shape))
         # M gets k too: a BlochCurlCurl mass wraps with the Bloch phases.
         return lobpcg(lambda x: op.apply_A(x, k), lambda x: op.apply_M(x, k),
@@ -229,12 +243,15 @@ class BandSweep:
                              "batched = True (run_warm takes one k a solve)")
         return self.solve_fn
 
+    def _dof_shape(self) -> tuple:
+        sp = self.op.space
+        return tuple(getattr(sp, "field_shape", sp.dof_shape))
+
     def _x0(self) -> torch.Tensor:
         """Start block from ``np.random.default_rng(seed)``, drawn as the
         reference draws it (real and imaginary planes)."""
         rng = np.random.default_rng(self.seed)
-        sp = self.op.space
-        shp = (self.m,) + tuple(getattr(sp, "field_shape", sp.dof_shape))
+        shp = (self.m,) + self._dof_shape()
         t = torch.as_tensor(np.stack([rng.standard_normal(shp),
                                       rng.standard_normal(shp)]),
                             dtype=self.op.rdtype, device=self.op.device)
@@ -301,9 +318,9 @@ class BandSweep:
                         host(lead(r.residual_norms).double()), sup, Xh, vecs)
 
     def _refine_chunk(self, got: _Fetched, ks) -> list:
-        """The rows of a fetched chunk, each k refined in turn (the worker
-        thread's job): per k (eigenvalues, iterations, residuals, seconds
-        in the refine, fell back)."""
+        """The rows of a fetched chunk's first len(ks) k, each refined in
+        turn (the worker thread's job): per k (eigenvalues, iterations,
+        residuals, seconds in the refine, fell back)."""
         rows = []
         for j, k in enumerate(ks):
             lam, res, dt, fell = got.lam[j], got.res[j], 0.0, False
@@ -316,29 +333,37 @@ class BandSweep:
             rows.append((lam, int(got.its[j]), res, dt, fell))
         return rows
 
-    def _pipelined(self, solves: Iterator, k_cart: np.ndarray, writer,
-                   k_index: Optional[np.ndarray]) -> SweepResult:
+    def _pipelined(self, solves: Iterator, nk: int, writer,
+                   k_index: Optional[np.ndarray], mesh=None) -> SweepResult:
         """Drive ``solves``, whose every step solves the next chunk of k
-        on the main thread and yields (its first index, its fetched
-        outputs), with each chunk's refine on one worker thread while the
-        main thread solves the next chunk. Chunks are collected, and
-        written through ``writer``, in k order; a refine's exception is
-        raised here once the chunks before it are written. A solve's
-        exception is raised once the chunk before it, if its refine
-        succeeded, is written."""
-        rows, vecs = [], [] if self.keep_vectors else None
+        on the main thread and yields (the positions in the sweep's k
+        table of its real rows, their k, its fetched outputs), with each
+        chunk's refine on one worker thread while the main thread solves
+        the next chunk. A solve's rows past its real ones (a shard's
+        padding) are not refined. With ``mesh`` every rank does this for
+        its share and each chunk's rows are gathered from every rank (on
+        the main thread, in step) and written by rank 0. Rows are written
+        through ``writer`` chunk by chunk, in k order within a chunk; a
+        refine's exception is raised here once the chunks before it are
+        written. A solve's exception is raised once the chunk before it,
+        if its refine succeeded, is written."""
+        rows = [None] * nk
+        vecs = [None] * nk if self.keep_vectors else None
         solve_s = 0.0
 
-        def collect(s, got, fut):
-            part = fut.result()
-            rows.extend(part)
-            if vecs is not None:
-                vecs.extend(got.vecs)
-            if writer is not None:
-                idx = (k_index[s:s + len(part)] if k_index is not None
-                       else range(s, s + len(part)))
-                lam, its, res = (np.asarray(c) for c in list(zip(*part))[:3])
-                writer.write_chunk(idx, lam[:, :self.nev], its,
+        def collect(idx, got, fut):
+            vs = (got.vecs[:len(idx)] if vecs is not None
+                  else [None] * len(idx))
+            idx, both = replicated(mesh, idx, list(zip(fut.result(), vs)))
+            for i, (row, v) in zip(idx, both):
+                rows[i] = row
+                if vecs is not None:
+                    vecs[i] = v
+            if writer is not None and (mesh is None or mesh.rank == 0):
+                gidx = (k_index[idx] if k_index is not None else idx)
+                lam, its, res = (np.asarray(c) for c in
+                                 list(zip(*(rows[i] for i in idx)))[:3])
+                writer.write_chunk(gidx, lam[:, :self.nev], its,
                                    res[:, :self.nev])
 
         t0 = time.perf_counter()
@@ -351,13 +376,13 @@ class BandSweep:
                     solve_s += time.perf_counter() - t1
                     if step is None:
                         break
-                    s, got = step
+                    idx, ks, got = step
                     fut = pool.submit(self._refine_chunk, got,
-                                      k_cart[s:s + len(got.its)])
+                                      ks[:len(idx)])
                     if pending is not None:
                         done, pending = pending, None
                         collect(*done)
-                    pending = (s, got, fut)
+                    pending = (idx, got, fut)
             except BaseException:
                 # The serial sweep had written the chunk before a failed
                 # solve: so is it here, once its refine is done.
@@ -398,10 +423,11 @@ class BandSweep:
                 r, support = self.solve_fn(X, k, self.nev, self.tol,
                                            self.maxiter)
                 X = r.eigenvectors
-                yield i, self._fetch(r, support, batched=False)
-        return self._pipelined(solves(self._x0()), k_cart, writer, k_index)
+                yield [i], k[None], self._fetch(r, support, batched=False)
+        return self._pipelined(solves(self._x0()), len(k_cart), writer,
+                               k_index)
 
-    def run(self, k_cart: np.ndarray, chunk: Optional[int] = None,
+    def run(self, k_cart: np.ndarray, mesh=None, chunk: Optional[int] = None,
             writer=None, k_index: Optional[np.ndarray] = None
             ) -> SweepResult:
         """Cold sweep: every k solved from the seeded start block, in
@@ -409,15 +435,72 @@ class BandSweep:
         k-batched solve (module docstring); its k are then refined on the
         host one after the other, while the next chunk is solved. With
         ``writer``, each finished chunk is written at once under the
-        global indices ``k_index`` (default 0..nk-1)."""
+        global indices ``k_index`` (default 0..nk-1).
+
+        ``mesh`` (``parallel.mesh.KMesh``, every rank of its group calls
+        ``run`` alike): the chunk is rounded up to a multiple of the group
+        size P, each chunk padded with its last k to a multiple of P, and
+        rank r solves the r-th equal share of it as one k-batched solve on
+        its device and refines it on its worker thread; each chunk's rows
+        are gathered from every rank in k order and written by rank 0,
+        and every rank returns the same ``SweepResult``."""
         k_cart = self._rounded(k_cart)
         nk = len(k_cart)
-        chunk = chunk or nk
+        P = mesh.size if mesh is not None else 1
+        chunk = -(-max(chunk or nk, P) // P) * P
         bsolve = self._batched_solve()
 
         def solves(X0):
             for s in range(0, nk, chunk):
-                r, support = bsolve(X0, k_cart[s:s + chunk], self.nev,
-                                    self.tol, self.maxiter)
-                yield s, self._fetch(r, support, batched=True)
-        return self._pipelined(solves(self._x0()), k_cart, writer, k_index)
+                ks, lo, real = shard_k(mesh, k_cart[s:s + chunk])
+                r, support = bsolve(X0, ks, self.nev, self.tol,
+                                    self.maxiter)
+                yield (list(range(s + lo, s + lo + real)), ks,
+                       self._fetch(r, support, batched=True))
+        return self._pipelined(solves(self._x0()), nk, writer, k_index,
+                               mesh)
+
+    def run_warm_sharded(self, k_cart: np.ndarray, mesh=None, writer=None,
+                         k_index: Optional[np.ndarray] = None,
+                         segments: Optional[int] = None) -> SweepResult:
+        """Warm starts within contiguous segments of the path, the
+        segments solved side by side (the reference's combined regime,
+        ``bravais_tpu/bands/sweep.py`` ``run_warm_sharded``).
+
+        The path is padded with its last k to S·per k-points and cut into
+        S contiguous segments of ``per``; S is ``segments``, by default
+        the group size P of ``mesh`` (4 without one), rounded up to a
+        multiple of P. At each path position t every segment's t-th k is
+        solved, each warm-started from its segment's previous block (the
+        seeded start block at t = 0): rank r holds segments [r·S/P,
+        (r+1)·S/P) and solves their current k as one k-batched solve (a
+        start block per k) on its device, the blocks staying there. Each
+        position's rows are refined on the worker thread beside the next
+        position's solve, gathered from every rank and written by rank 0
+        (``writer``, under ``k_index``); every rank returns the same
+        ``SweepResult`` in path order."""
+        k_cart = self._rounded(k_cart)
+        nk = len(k_cart)
+        P = mesh.size if mesh is not None else 1
+        S = segments or (P if mesh is not None else 4)
+        S = -(-S // P) * P
+        per = -(-nk // S)
+        kseg = np.concatenate(
+            [k_cart, np.repeat(k_cart[-1:], S * per - nk, axis=0)]
+        ).reshape(S, per, -1)
+        r = mesh.rank if mesh is not None else 0
+        mine = range(r * S // P, (r + 1) * S // P)
+        bsolve = self._batched_solve()
+
+        def solves(X):
+            for t in range(per):
+                ks = kseg[list(mine), t]
+                r, support = bsolve(X, ks, self.nev, self.tol,
+                                    self.maxiter)
+                X = r.eigenvectors
+                yield ([s * per + t for s in mine if s * per + t < nk], ks,
+                       self._fetch(r, support, batched=True))
+        X0 = self._x0()
+        return self._pipelined(
+            solves(X0.expand((len(mine),) + tuple(X0.shape))), nk, writer,
+            k_index, mesh)

@@ -14,10 +14,26 @@ solve with GMG or Jacobi. Runs on the CUDA device unless ``--device
 cpu`` is given;
 without a card it exits with an error instead of falling back to the
 CPU. ``--precision f64`` runs only on the CPU and needs ``--device cpu``
-(the entry point never picks the CPU by itself). What the port
-lacks exits with an error that names it: the ``gmg`` Maxwell engine
-(and ``auto`` on a grid with n < 3), which needs the reference's QPGMG;
-``--mode warm-chain``; ``--shard``.
+(the entry point never picks the CPU by itself).
+
+``--shard`` splits the k-points over the ranks of a ``torch.distributed``
+group, as the reference's ``--shard`` splits them over a device mesh:
+``--mode warm`` runs ``BandSweep.run_warm_sharded`` (one warm-started
+segment of the path per rank) and ``--mode batched`` ``BandSweep.run``
+with the mesh (each rank one k-batched share of the path). Under a
+launcher the group comes from its environment,
+
+    torchrun --standalone --nproc-per-node 4 -m -- bravais_tpu_torch \
+        ... --shard
+
+(one card per rank, NCCL; ``--device cpu``: gloo; the ``--`` keeps
+torchrun's own parser from reading ``--n`` as an abbreviation of its
+options); without one it is a group of one. Only rank 0 writes the run directory, logs and saves
+modes; a ``--resume`` shards only the k still to do.
+
+What the port lacks exits with an error that names it: the ``gmg``
+Maxwell engine (and ``auto`` on a grid with n < 3), which needs the
+reference's QPGMG; ``--mode warm-chain``.
 """
 
 from __future__ import annotations
@@ -61,9 +77,6 @@ def check_modes(cfg) -> None:
                           "or batched")
     if cfg.mode not in ("warm", "batched"):
         raise Unsupported(f"unknown --mode {cfg.mode!r}")
-    if cfg.shard:
-        raise Unsupported("--shard (multi-GPU k sharding) is not ported "
-                          "yet")
     if cfg.plot:
         import importlib.util
         if importlib.util.find_spec("matplotlib") is None:
@@ -159,19 +172,43 @@ def make_solve_fn(cfg, op):
 
 def run(cfg, log=print):
     """Run the band structure of ``cfg``; returns the ``BandWriter`` (None
-    without ``cfg.out``). Raises ``Unsupported`` for what the port does
-    not run."""
+    without ``cfg.out`` and on a rank other than 0). Raises
+    ``Unsupported`` for what the port does not run. With ``cfg.shard``
+    this process is one rank of the group (``kpoint_mesh``: NCCL on the
+    card, gloo on the CPU), which it ends before returning."""
+    device = resolve_device(cfg)
+    check_modes(cfg)
+    mesh = None
+    if cfg.shard:
+        from bravais_tpu_torch.parallel.mesh import kpoint_mesh
+        mesh = kpoint_mesh("nccl" if device == "cuda" else "gloo", device)
+        device = str(mesh.device)
+        if mesh.rank:
+            log = _quiet
+    try:
+        return _run(cfg, device, mesh, log)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def _quiet(*args, **kwargs):
+    """The log of a rank other than 0: nothing."""
+
+
+def _run(cfg, device, mesh, log):
     import numpy as np
 
     from bravais_tpu_torch.bands import (BandSweep, BandWriter, plot_bands,
                                          save_modes)
 
-    device = resolve_device(cfg)
-    check_modes(cfg)
     t0 = time.perf_counter()
     lat, kp, op = build_problem(cfg, device)
     log(f"# {lat.variant}: {op.space.ndofs} dofs, {kp.nk} k-points, "
         f"nev={cfg.nev}, tol={cfg.tol:g}, {cfg.precision} on {device}")
+    if mesh is not None:
+        log(f"# sharded over {mesh.size} rank{'s' * (mesh.size > 1)} "
+            f"({mesh.backend})")
 
     sweep = BandSweep(op, make_solve_fn(cfg, op), nev=cfg.nev,
                       block=cfg.block, tol=cfg.tol, maxiter=cfg.maxiter,
@@ -180,10 +217,12 @@ def run(cfg, log=print):
 
     writer = None
     finished = []
-    if cfg.out:
+    if cfg.out and (mesh is None or mesh.rank == 0):
         writer = BandWriter(cfg.out, cfg.identity_dict(), kp.nk, cfg.nev)
         if cfg.resume:
             finished = writer.try_resume()
+    if mesh is not None:
+        finished = mesh.broadcast_object(finished)
     todo = [i for i in range(kp.nk) if i not in set(finished)]
     if not todo:
         log("# all k-points already finished (resume)")
@@ -200,10 +239,13 @@ def run(cfg, log=print):
                 kcart[j] = 2e-2 * lat.B[0]
     todo_np = np.asarray(todo)
     # Each finished k (warm) or chunk (batched) is on disk at once.
-    if cfg.mode == "warm":
+    if cfg.mode == "warm" and mesh is not None:
+        res = sweep.run_warm_sharded(kcart, mesh, writer=writer,
+                                     k_index=todo_np)
+    elif cfg.mode == "warm":
         res = sweep.run_warm(kcart, writer=writer, k_index=todo_np)
     else:
-        res = sweep.run(kcart, writer=writer, k_index=todo_np)
+        res = sweep.run(kcart, mesh=mesh, writer=writer, k_index=todo_np)
 
     for j, i in enumerate(todo):
         log(json.dumps({"k_index": i,
@@ -212,7 +254,7 @@ def run(cfg, log=print):
                         "max_rel_res": float(np.max(res.residuals[j])),
                         "eigenvalues": [float(v)
                                         for v in res.eigenvalues[j]]}))
-    if cfg.save_modes and cfg.out:
+    if cfg.save_modes and writer is not None:
         for j, i in enumerate(todo):
             save_modes(cfg.out, i, kp.k_cart[i], res.eigenvalues[j],
                        res.eigenvectors[j])

@@ -66,7 +66,9 @@ class RunConfig:
     precision: str = "f32"
     # execution
     mode: str = "warm"               # "warm" | "batched" | "warm-chain"
-    shard: bool = False              # shard k axis over all devices
+    #: shard the k-points over the ranks of a torch.distributed group
+    #: (one process and one device per rank, e.g. under ``torchrun``)
+    shard: bool = False
     #: Maxwell solver engine: "auto" | "spectral" | "field" | "gmg"
     engine: str = "auto"
     seed: int = 0

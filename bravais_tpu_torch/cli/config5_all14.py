@@ -3,6 +3,7 @@
 
     python -m bravais_tpu_torch.cli.config5_all14 [--n 6] [--p 4] [--nev 6]
         [--engine spectral|field] [--device cuda|cpu] [--write PATH]
+        [--shard]
 
 For every 3D Bravais lattice family (the variant parameters ``PARAMS``
 where the family needs them) it solves the empty-lattice scalar Helmholtz
@@ -22,8 +23,13 @@ cuda``) and each lattice's host stencil extraction. It prints a markdown
 table and exits 1 if the worst error is 1e-5 or more (the reference's
 gate). ``--write PATH`` also writes the table to PATH. It runs on the
 CUDA device unless ``--device cpu`` is given; without a card it exits
-with an error. The reference's ``--shard`` (k over several devices) is
-not ported.
+with an error. ``--shard`` (the reference's k over several devices)
+splits each lattice's 8 k over the ranks of a ``torch.distributed``
+group, every lattice's ``run`` with the mesh (``torchrun --standalone
+--nproc-per-node P -m -- bravais_tpu_torch.cli.config5_all14 --shard``:
+one card per rank, NCCL; ``--device cpu``: gloo; without a launcher a
+group of one; the ``--`` keeps torchrun's parser from reading ``--n`` as
+its own); rank 0 prints the table and writes ``--write``.
 """
 
 from __future__ import annotations
@@ -99,17 +105,18 @@ def max_rel_err(lat, k_cart, eigenvalues) -> float:
 
 
 def run_one(name, n, p, nev, tol, maxiter, engine="spectral",
-            device="cuda", chunk=None):
+            device="cuda", chunk=None, mesh=None):
     """One lattice: every k in one batched ``run`` (or chunks of
-    ``chunk``); returns its record (lattice variant, dofs, max relative
-    error, mean and per-k iterations, setup seconds, the measured wall
-    of the run and the host refine inside it)."""
+    ``chunk``; over the ranks of ``mesh`` when given); returns its record
+    (lattice variant, dofs, max relative error, mean and per-k
+    iterations, setup seconds, the measured wall of the run and the host
+    refine inside it)."""
     t0 = time.perf_counter()
     lat, k_cart, op, sweep = build(name, n, p, nev, tol, maxiter, engine,
                                    device)
     setup = time.perf_counter() - t0
     t0 = time.perf_counter()
-    res = sweep.run(k_cart, chunk=chunk)
+    res = sweep.run(k_cart, mesh=mesh, chunk=chunk)
     wall = time.perf_counter() - t0
     return {"lattice": lat.variant, "dofs": op.space.ndofs,
             "max_rel_err": max_rel_err(lat, k_cart, res.eigenvalues),
@@ -120,8 +127,6 @@ def run_one(name, n, p, nev, tol, maxiter, engine="spectral",
 
 
 def main(argv=None):
-    from bravais_tpu_torch.lattices import LATTICE_NAMES
-
     ap = argparse.ArgumentParser(
         prog="python -m bravais_tpu_torch.cli.config5_all14",
         description="Config 5: all 14 Bravais lattices, empty-lattice "
@@ -137,11 +142,34 @@ def main(argv=None):
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--write", metavar="PATH",
                     help="also write the markdown table to PATH")
+    ap.add_argument("--shard", action="store_true",
+                    help="split each lattice's k over the ranks of a "
+                    "torch.distributed group (torchrun)")
     args = ap.parse_args(argv)
 
     import torch
     if args.device == "cuda" and not torch.cuda.is_available():
         ap.error("no CUDA device: pass --device cpu to run on the CPU")
+    mesh = None
+    if args.shard:
+        from bravais_tpu_torch.parallel.mesh import kpoint_mesh
+        mesh = kpoint_mesh("nccl" if args.device == "cuda" else "gloo",
+                           args.device)
+    try:
+        return _main(args, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def _main(args, mesh):
+    import torch
+
+    from bravais_tpu_torch.lattices import LATTICE_NAMES
+
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
+    device = str(mesh.device) if mesh is not None else args.device
     build_s = 0.0
     if args.device == "cuda":
         from bravais_tpu_torch.utils import cuda_build
@@ -151,13 +179,16 @@ def main(argv=None):
         dev = torch.cuda.get_device_name(0)
     else:
         dev = "cpu"
-    print(f"# kernels built in {build_s:.2f} s", flush=True)
+    if mesh is not None:
+        dev += (f", k sharded over {mesh.size} rank"
+                f"{'s' * (mesh.size > 1)} ({mesh.backend})")
+    say(f"# kernels built in {build_s:.2f} s", flush=True)
     rows = []
     for name in LATTICE_NAMES:
         r = run_one(name, args.n, args.p, args.nev, args.tol, args.maxiter,
-                    args.engine, args.device)
+                    args.engine, device, mesh=mesh)
         rows.append(r)
-        print(f"# {r['lattice']:8s} dofs={r['dofs']:6d} "
+        say(f"# {r['lattice']:8s} dofs={r['dofs']:6d} "
               f"err={r['max_rel_err']:.2e} iters={r['mean_iters']:5.1f} "
               f"setup={r['setup_s']:6.2f}s wall={r['wall_s']:7.3f}s "
               f"refine={r['refine_s']:6.3f}s", flush=True)
@@ -180,8 +211,8 @@ def main(argv=None):
     above = [r["lattice"] for r in rows if r["max_rel_err"] > 1e-6]
     foot = (f"\nWorst-case error over all 14 families: {worst:.2e}; above "
             f"1e-6: {', '.join(above) or 'none'}.\n")
-    print(hdr + body + foot)
-    if args.write:
+    say(hdr + body + foot)
+    if args.write and lead:
         import pathlib
         pathlib.Path(args.write).write_text(hdr + body + foot)
     return 0 if worst < 1e-5 else 1

@@ -23,6 +23,11 @@ state unchanged (``torch.where`` on an (nk,) mask) while the others go
 on. The loop reads the (nk,) done flags from the host once per
 iteration. The unbatched call is the same code with no leading axis.
 
+A block whose dof axis is split over a process group (domain
+decomposition, ``HelmholtzSlab``) runs with ``reduce``: every sum over
+the dof axis is completed over the group, and each rank then does the
+same small dense work.
+
 Conventions: block arrays are (m, N) with each ROW a vector ((nk, m, N)
 batched); ⟨x, y⟩ = conj(x)·y; Gram G[i, j] = ⟨s_i, Op s_j⟩ = conj(S) @
 (Op S)ᵀ. The operators ``A(X)``, ``M(X)``, ``AM(X)`` (the fused pair),
@@ -166,7 +171,8 @@ def lobpcg(A: Callable, M: Optional[Callable], X0: torch.Tensor, nev: int,
            kernel_project: Optional[Callable] = None,
            rr_tol: Optional[float] = None,
            generator: Optional[torch.Generator] = None,
-           batched: bool = False) -> LobpcgResult:
+           batched: bool = False,
+           reduce: Optional[Callable] = None) -> LobpcgResult:
     """LOBPCG on the Hermitian pencil (A, M) — see module docstring.
 
     ``X0``: (m, *dof_shape) complex start block, m >= nev; with
@@ -185,6 +191,15 @@ def lobpcg(A: Callable, M: Optional[Callable], X0: torch.Tensor, nev: int,
     reseeds zero rows of ``X0`` (default: seeded with ``RESEED`` on
     X0's device; every k draws the same noise, as under the reference's
     vmap).
+    ``reduce(t)``: sums a tensor over a process group in place (e.g.
+    ``KMesh.all_reduce_``) for a block whose dof axis is split over the
+    group's ranks (domain decomposition: every rank holds its slab of
+    each row and runs this call with the others). Every sum over the dof
+    axis goes through it (the Grams, the row norms, the Rayleigh quotients
+    and the residual norms), so the small dense work that follows runs
+    alike on every rank from the same input. A reseeded zero row then
+    takes noise of its slab's size on each rank, not the unsplit
+    block's.
     """
     lead = tuple(X0.shape[:1]) if batched else ()
     nk = X0.shape[0] if batched else 1
@@ -216,11 +231,26 @@ def lobpcg(A: Callable, M: Optional[Callable], X0: torch.Tensor, nev: int,
     Pf = flat(precond) if precond is not None else None
     Kf = flat(kernel_project) if kernel_project is not None else None
 
+    def rsum(t):
+        # A sum over the dof axis: completed over the group's slabs.
+        return t if reduce is None else reduce(t)
+
+    def gram(U, V):
+        return rsum(_gram(U, V))
+
+    def dots(U, V):       # ⟨u_i, v_i⟩ per row
+        return rsum((U.conj() * V).sum(dim=-1)).real
+
+    def norms(U):
+        if reduce is None:
+            return torch.linalg.vector_norm(U, dim=-1)
+        return torch.sqrt(rsum(torch.linalg.vector_norm(U, dim=-1) ** 2))
+
     X = X0.reshape(lead + (m, -1)).to(cdtype)
     # Reseed degenerate (zero) warm-start rows: zero rows are ABSORBING
     # under the LOBPCG update (R = 0 ⇒ W = 0). The max(·, 1) floor makes
     # an all-zero block reseed every row.
-    rn = torch.linalg.vector_norm(X, dim=-1)
+    rn = norms(X)
     bad0 = rn < 1e-6 * torch.clamp(rn.amax(-1, keepdim=True), min=1.0)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(RESEED)
@@ -228,34 +258,33 @@ def lobpcg(A: Callable, M: Optional[Callable], X0: torch.Tensor, nev: int,
                      device=dev)
     X = torch.where(bad0[..., None], torch.complex(fr[0], fr[1]), X)
 
-    C, _ = _whiten(_gram(X, Mf(X)), eps)
+    C, _ = _whiten(gram(X, Mf(X)), eps)
     X = C.mT @ X                     # M-orthonormal start block
     P = torch.zeros_like(X)
     res = torch.full(lead + (m,), float("inf"), dtype=rdtype, device=dev)
 
     def rownorm(U, MU):
-        s = torch.rsqrt(torch.clamp((U.conj() * MU).sum(dim=-1).real,
-                                    min=fi.tiny))
+        s = torch.rsqrt(torch.clamp(dots(U, MU), min=fi.tiny))
         # Exact-zero (locked) rows stay zero.
-        nz = (torch.linalg.vector_norm(U, dim=-1) > 0).to(rdtype)
+        nz = (norms(U) > 0).to(rdtype)
         return (s * nz)[..., None]
 
     def body(X, AX, MX, P, AP, MP):
         # Ritz values of the current (M-orthonormal) X.
-        lam = (X.conj() * AX).sum(dim=-1).real
+        lam = dots(X, AX)
         R = AX - MX * lam[..., None]
         alam = lam.abs()
         scale = torch.maximum(alam, torch.clamp(
             floor * alam.amax(-1, keepdim=True), min=1e-3))
-        rel = torch.linalg.vector_norm(R, dim=-1) / scale
+        rel = norms(R) / scale
         # A whitening-dropped (all-zero) row must read as unconverged.
-        xnorm = (X.conj() * MX).sum(dim=-1).real
+        xnorm = dots(X, MX)
         rel = torch.where(xnorm > 0.5, rel, float("inf"))
         conv = rel < tol
 
         W = Pf(R) if Pf is not None else R
         # M-project out span(X):  w_i -= Σ_j ⟨x_j, M w_i⟩ x_j.
-        W = W - _gram(W, MX).conj() @ X
+        W = W - gram(W, MX).conj() @ X
         # Soft locking: zero converged rows of W and P.
         mask = (~conv)[..., None].to(rdtype)
         W = W * mask
@@ -269,8 +298,8 @@ def lobpcg(A: Callable, M: Optional[Callable], X0: torch.Tensor, nev: int,
         S = torch.cat([X, W, P], dim=-2)                  # (3m, N)
         AS = torch.cat([AX, AW, AP], dim=-2)
         MS = torch.cat([MX, MW, MP], dim=-2)
-        C, good = _whiten_chol(_gram(S, MS), eps)        # (3m, 3m)
-        H = _hermitize(C.mH @ _gram(S, AS) @ C)
+        C, good = _whiten_chol(gram(S, MS), eps)         # (3m, 3m)
+        H = _hermitize(C.mH @ gram(S, AS) @ C)
         # Dropped directions: Ritz values above the spectrum, moderately
         # (a Gershgorin bound keeps the matrix scale sane).
         big = 2.0 * H.abs().sum(dim=-1).amax(-1, keepdim=True) + 1.0
@@ -354,11 +383,11 @@ def lobpcg(A: Callable, M: Optional[Callable], X0: torch.Tensor, nev: int,
 
     X, AX, MX = state[0], state[1], state[2]
     # Final Ritz data on the exit state (X M-orthonormal up to roundoff).
-    nrm = torch.clamp((X.conj() * MX).sum(dim=-1).real, min=fi.tiny)
-    lam = (X.conj() * AX).sum(dim=-1).real / nrm
+    nrm = torch.clamp(dots(X, MX), min=fi.tiny)
+    lam = dots(X, AX) / nrm
     R = AX - MX * lam[..., None]
     alam = lam.abs()
-    rel = torch.linalg.vector_norm(R, dim=-1) / torch.maximum(
+    rel = norms(R) / torch.maximum(
         alam, torch.clamp(floor * alam.amax(-1, keepdim=True), min=1e-3))
     # Zero (whitening-dropped) rows: unconverged AND sorted last.
     healthy = nrm > 0.5 * nrm.amax(-1, keepdim=True)

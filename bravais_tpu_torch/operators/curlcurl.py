@@ -30,6 +30,8 @@ What is here:
   "project" and "project-cheby", ``precond="fastdiag"``);
 * the operator diagonals ``diag_A``/``diag_M`` (the built-in sweep's
   Jacobi preconditioner);
+* ``CurlCurlSlab``: one rank's slab of the field applies split along the
+  first dof axis over a process group (domain decomposition);
 * the f64 gradient component ``gradient_component_np`` (exact for
   element-invariant ε, twin-preconditioned CG on the true L otherwise).
 
@@ -48,12 +50,14 @@ from bravais_tpu_torch.operators.coefficients import (CoefLike,
                                                       eval_coefficient)
 from bravais_tpu_torch.operators.nd_apply import (NdConsts, comp_shapes,
                                                   nedelec_apply)
+from bravais_tpu_torch.parallel.halo import (gather_axis0,
+                                             scatter_add_axis0, slab)
 from bravais_tpu_torch.spaces import tensor as dtensor
 from bravais_tpu_torch.spaces import tensor_np as tensor
 from bravais_tpu_torch.spaces.h1 import H1Space
 from bravais_tpu_torch.spaces.nedelec import NedelecSpace
 
-__all__ = ["BlochCurlCurl", "projector_factor"]
+__all__ = ["BlochCurlCurl", "CurlCurlSlab", "projector_factor"]
 
 _CYC = ((0, 1, 2), (1, 2, 0), (2, 0, 1))  # (r, s, t) cyclic triples
 
@@ -307,13 +311,15 @@ class BlochCurlCurl:
                                            self._mu_inv_q64, self.device)
         return self._nd
 
-    def _gather_stacked(self, u, ph):
+    def _gather_stacked(self, u, ph, mesh=None):
         """(R, 3, N₁, N₂, N₃) → the Nédélec kernel's element-major
         (R·E, 3·p·l²), l = p + 1: per component the closed axes gathered
         with their wrap phase (l values each), the open axis reshaped (p
-        values), each element-row's dofs contiguous."""
+        values), each element-row's dofs contiguous. With ``mesh``, axis
+        0 is this rank's slab (``CurlCurlSlab``): components 1 and 2,
+        closed on it, take their halo over the mesh."""
         sp = self.space
-        n = tuple(sp.grid.shape)
+        n = self._slab_shape(u, mesh)
         R, nc = u.shape[0], sp.p * (sp.p + 1) ** 2
         out = torch.empty((R * int(np.prod(n)), 3 * nc), dtype=u.dtype,
                           device=u.device)
@@ -324,17 +330,28 @@ class BlochCurlCurl:
                 if i == c:
                     s = g.shape
                     g = g.reshape(*s[:ax + 1], n[i], sp.p, *s[ax + 2:])
+                elif i == 0 and mesh is not None:
+                    g = gather_axis0(g, n[0], sp.p, mesh, ph[..., 0])
                 else:
                     g = dtensor.gather_axis(g, ax, n[i], sp.p, ph[..., i])
             out[:, c * nc:(c + 1) * nc].view((R,) + n + ext).copy_(
                 g.permute(0, 1, 3, 5, 2, 4, 6))
         return out
 
-    def _scatter_stacked(self, r, ph):
+    def _slab_shape(self, u, mesh) -> tuple:
+        """The element grid of a block: the whole grid, or with ``mesh``
+        the slab's (n₁/P, n₂, n₃) read from the block's axis 2."""
+        n = tuple(self.space.grid.shape)
+        return n if mesh is None else (u.shape[2] // self.space.p,) + n[1:]
+
+    def _scatter_stacked(self, r, ph, mesh=None, n0=None):
         """Adjoint of :meth:`_gather_stacked`: (R·E, 3·p·l²) →
-        (R, 3, N₁, N₂, N₃)."""
+        (R, 3, N₁, N₂, N₃); with ``mesh``, the slab of ``n0`` elements
+        of axis 0."""
         sp = self.space
         n = tuple(sp.grid.shape)
+        if mesh is not None:
+            n = (n0,) + n[1:]
         R, nc = r.shape[0] // int(np.prod(n)), sp.p * (sp.p + 1) ** 2
         outs = []
         for c, ext in enumerate(comp_shapes(sp.p)):
@@ -345,6 +362,8 @@ class BlochCurlCurl:
                 if i == c:
                     s = g.shape
                     g = g.reshape(*s[:ax + 1], n[i] * sp.p, *s[ax + 3:])
+                elif i == 0 and mesh is not None:
+                    g = scatter_add_axis0(g, n[0], sp.p, mesh, ph[..., 0])
                 else:
                     g = dtensor.scatter_add_axis(g, ax, n[i], sp.p,
                                                  ph[..., i])
@@ -698,7 +717,8 @@ class BlochCurlCurl:
         (nk, 3) it solves every k at once (``solve.batched``): per-k
         phases, one (A + sM)⁻¹ and one L-twin factorization for all k
         (the L-twin eigh one Jacobi launch on (nk·B, D, D)), the start
-        block X0 shared and deflated per k, and a k-batched LOBPCG whose
+        block X0 shared (or one per k, (nk, m, 3, N₁, N₂, N₃)) and
+        deflated per k, and a k-batched LOBPCG whose
         every element apply is one launch for the nk·rows rows; every
         output then has a leading k axis. The Chebyshev bounds and steps
         do not depend on k and are shared."""
@@ -745,7 +765,7 @@ class BlochCurlCurl:
 
             batched = np.ndim(k) == 2
             X0 = X0.to(self.dtype)
-            if batched:
+            if batched and X0.ndim == 5:
                 X0 = X0.expand((len(k),) + tuple(X0.shape))
             return lobpcg(lambda x: self.apply_A(x, ph=ph),
                           lambda x: self.apply_M(x, ph=ph),
@@ -913,7 +933,8 @@ class BlochCurlCurl:
         field eigenvectors (m, 3, N₁, N₂, N₃), support (m, B)). With a k
         table (nk, 3) it solves every k at once (``solve.batched``): the
         blocks, factors and projector (nk, B, ...), the start block X0
-        (m, 3, N₁, N₂, N₃) shared, and a k-batched LOBPCG; every output
+        (m, 3, N₁, N₂, N₃) shared (or one per k, (nk, m, 3, N₁, N₂, N₃)),
+        and a k-batched LOBPCG; every output
         then has a leading k axis. ``solve.refine_np`` is the matching
         host refine of one k.
         """
@@ -983,6 +1004,61 @@ class BlochCurlCurl:
         solve.batched = True
         solve.refine_np = self.spectral_refine_np
         return solve
+
+
+class CurlCurlSlab:
+    """One rank's slab of a ``BlochCurlCurl`` split along the first dof
+    axis of every component over a process group
+    (``parallel.mesh.KMesh``): domain decomposition of one k's field
+    apply (the reference's ``test_sharded_curlcurl_apply_matches``).
+
+    Rank r owns elements [r·n₁/P, (r+1)·n₁/P) of axis 0 and their n₁/P·p
+    leading dof planes of each component (``dofs``; ``take`` cuts them
+    from a global block), so its blocks are (rows, 3, n₁/P·p, N₂, N₃).
+    ``apply_A``, ``apply_M`` and ``apply_AM`` run the fused Nédélec
+    element apply (the nd kernel on CUDA) on the slab's elements with the
+    coefficient planes cut to them; components 1 and 2, closed on axis 0,
+    exchange a one-plane halo with the neighbouring ranks, the last rank
+    applying the wrap phase (``parallel/halo.py``). Every rank makes each
+    call together with the others. Refuses n₁ % P ≠ 0."""
+
+    def __init__(self, op: BlochCurlCurl, mesh):
+        self.op, self.mesh = op, mesh
+        sp = op.space
+        self.space, self.dtype, self.device = sp, op.dtype, op.device
+        e0, self.ne = slab(sp.grid.shape[0], mesh)
+        self.dofs = slice(e0 * sp.p, (e0 + self.ne) * sp.p)
+        per = int(np.prod(sp.grid.shape[1:]))
+        self._consts = op.nd_consts().elements(e0 * per,
+                                               (e0 + self.ne) * per)
+
+    def take(self, u: torch.Tensor) -> torch.Tensor:
+        """This rank's slab of a global block (..., 3, N₁, N₂, N₃)."""
+        return u[..., self.dofs, :, :]
+
+    def _apply(self, u, k, ph, want):
+        op = self.op
+        if ph is None:
+            ph = op.phases(k)
+        u, lead = op._rows(u, ph, 4)
+        ue = op._gather_stacked(u.to(self.dtype), ph, self.mesh)
+        outs = [op._scatter_stacked(t, ph, self.mesh, self.ne)
+                for t in nedelec_apply(ue, self._consts, want)
+                if t is not None]
+        return tuple(t if lead is None else t.reshape(lead + t.shape[1:])
+                     for t in outs)
+
+    def apply_A(self, u: torch.Tensor, k=None, *, ph=None) -> torch.Tensor:
+        """A(k) u on a slab block (rows, 3, n₁/P·p, N₂, N₃)."""
+        return self._apply(u, k, ph, "A")[0]
+
+    def apply_M(self, u: torch.Tensor, k=None, *, ph=None) -> torch.Tensor:
+        """M u on a slab block (the mass wraps with the phases too)."""
+        return self._apply(u, k, ph, "M")[0]
+
+    def apply_AM(self, u: torch.Tensor, k=None, *, ph=None):
+        """(A(k) u, M u) on a slab block in one fused element apply."""
+        return self._apply(u, k, ph, "AM")
 
 
 def projector_factor(TM: torch.Tensor, TG: torch.Tensor, TGH: torch.Tensor

@@ -29,6 +29,7 @@ scatter-add), as ``QPLaplace`` and ``BlochHelmholtz`` call it.
 
 from __future__ import annotations
 
+import copy
 import ctypes
 
 import numpy as np
@@ -73,6 +74,16 @@ class H1Consts:
         metric[0, :self.d, :self.d] = self.JinvT
         metric[1, :self.d, :self.d] = self.Jinv
         self.host_metric = metric.ravel()
+
+    def elements(self, lo: int, hi: int) -> "H1Consts":
+        """The same constants on the elements [lo, hi) only (a slab of
+        whole element planes: the planes' rows are row-major over the
+        element grid)."""
+        c = copy.copy(self)
+        c.alpha_w = self.alpha_w[lo:hi].contiguous()
+        c.beta_w = self.beta_w[lo:hi].contiguous()
+        c.nelem = hi - lo
+        return c
 
     @classmethod
     def from_space(cls, space, alpha_q64, beta_q64, device,
@@ -280,19 +291,24 @@ def helmholtz_apply(ue: torch.Tensor, c: H1Consts, k, want: str = "AM"):
 
 
 def apply_global(space, u: torch.Tensor, c: H1Consts, k, want: str = "AM",
-                 phases=None):
+                 phases=None, mesh=None):
     """(y, m) of :func:`helmholtz_apply` on a block of global dofs ``u``
     (rows, N₁, ..., N_d) of ``space`` (with a k table (nk, d), nk groups
     of rows/nk rows, one k each): the periodic element gather (the
     quasi-periodic one with the wrap ``phases``), the element-major
     layout, the element apply and the scatter-add of each half in
-    ``want`` (None for the other); both halves share one scatter."""
+    ``want`` (None for the other); both halves share one scatter. With
+    ``mesh``, ``u`` is this rank's slab of axis 0 (its n₁/P·p dof planes)
+    and ``c`` holds the slab's elements (``H1Consts.elements``): the
+    gather and scatter exchange the slab's halo over the mesh."""
     sp = space
     d = sp.dim
-    n, pp, cl = sp.grid.shape, (sp.p,) * d, (True,) * d
+    n, pp, cl = list(sp.grid.shape), (sp.p,) * d, (True,) * d
+    if mesh is not None:
+        n[0] = u.shape[1] // sp.p
     ph = phases if phases is not None else [None] * d
     R, l = u.shape[0], sp.p + 1
-    ue = gather_qp(u, n, pp, cl, ph)               # (R, n₁, l, n₂, l, ...)
+    ue = gather_qp(u, n, pp, cl, ph, mesh)         # (R, n₁, l, n₂, l, ...)
     perm = [0] + [1 + 2 * i for i in range(d)] + [2 + 2 * i for i in range(d)]
     ue = ue.permute(perm).reshape((-1,) + (l,) * d).contiguous()
     y, m = helmholtz_apply(ue, c, k, want)
@@ -300,6 +316,6 @@ def apply_global(space, u: torch.Tensor, c: H1Consts, k, want: str = "AM",
     t = halves[0] if len(halves) == 1 else torch.cat(halves)
     inv = [0] + [x for i in range(d) for x in (1 + i, 1 + d + i)]
     t = t.reshape((-1,) + tuple(n) + (l,) * d).permute(inv)
-    out = iter(scatter_add_qp(t, n, pp, cl, ph).split(R))
+    out = iter(scatter_add_qp(t, n, pp, cl, ph, mesh).split(R))
     return (next(out) if y is not None else None,
             next(out) if m is not None else None)

@@ -18,6 +18,9 @@ What is here:
 * the real diagonals ``diag_A(k)``, ``diag_M`` and ``diag0`` (the k = 0
   stiffness diagonal), built once on the host;
 * the f64 host twins ``apply_A_np`` and ``apply_M_np`` (one field);
+* ``HelmholtzSlab``: one rank's slab of the operator split along its
+  first dof axis over a process group (domain decomposition: the applies
+  and ``diag_A`` with a halo exchange);
 * the SPECTRAL engine (element-invariant coefficients): ``qp_fastdiag``
   (the "A" and "M" stencils of the quasi-periodic twin discretization,
   probed on the 3×3 same-Jacobian twin grid and cached on disk),
@@ -34,10 +37,11 @@ import torch
 from bravais_tpu_torch.operators.coefficients import (CoefLike,
                                                       eval_coefficient)
 from bravais_tpu_torch.operators.h1_apply import H1Consts, apply_global
+from bravais_tpu_torch.spaces import tensor as dtensor
 from bravais_tpu_torch.spaces import tensor_np as tensor
 from bravais_tpu_torch.spaces.h1 import H1Space
 
-__all__ = ["BlochHelmholtz"]
+__all__ = ["BlochHelmholtz", "HelmholtzSlab"]
 
 
 class BlochHelmholtz:
@@ -121,12 +125,15 @@ class BlochHelmholtz:
         """Real diagonal of A(k) on the device (Jacobi / Chebyshev
         scaling): (N₁, ..., N_d) at one k, (nk, N₁, ..., N_d) for a k
         table (nk, d)."""
+        return self._diag_at(k, self._dev_diag_S, self._dev_diag_Ma)
+
+    def _diag_at(self, k, diag_S, diag_Ma) -> torch.Tensor:
+        """diag_S + |k|² diag_Mα, at one k or per k of a table."""
         k = np.asarray(k, self._np_rdtype)
         if k.ndim == 1:
-            return self._dev_diag_S + float(np.sum(k * k)) * self._dev_diag_Ma
+            return diag_S + float(np.sum(k * k)) * diag_Ma
         ksq = torch.as_tensor(np.sum(k * k, axis=-1), device=self.device)
-        return (self._dev_diag_S + ksq.reshape((-1,) + (1,) * self.space.dim)
-                * self._dev_diag_Ma)
+        return diag_S + ksq.reshape((-1,) + (1,) * self.space.dim) * diag_Ma
 
     @property
     def diag_M(self) -> np.ndarray:
@@ -190,6 +197,13 @@ class BlochHelmholtz:
     def _build_diagonals(self):
         """diag_S[j] = Σ_q w α Σ_rs Ginv[rs] ĝ_r ĝ_s |_loc(j) and
         diag_Mα[j] = Σ_q w α φ_j(x_q)², by squared-table contractions."""
+        args = self._np_args()
+        return tuple(tensor.scatter_add_np(e, *args).astype(self._np_rdtype)
+                     for e in self._diagonal_elements())
+
+    def _diagonal_elements(self):
+        """The element contributions (n₁, l, n₂, l, ...) to diag_S and
+        diag_Mα, before their scatter-add to the dofs (f64)."""
         sp = self.space
         d = sp.dim
         B, D, wq = self._rd_tables()
@@ -208,10 +222,7 @@ class BlochHelmholtz:
                     else:
                         tabs.append(BB)
                 diag_S = diag_S + Ginv[r, s] * tensor.contract_t_np(wa, tabs)
-        args = self._np_args()
-        return (tensor.scatter_add_np(diag_S, *args).astype(self._np_rdtype),
-                tensor.scatter_add_np(tensor.contract_t_np(wa, [BB] * d),
-                                      *args).astype(self._np_rdtype))
+        return diag_S, tensor.contract_t_np(wa, [BB] * d)
 
     def _mass_diagonal(self, coef_q):
         B, _, wq = self._rd_tables()
@@ -303,7 +314,8 @@ class BlochHelmholtz:
         field eigenvectors (m, N₁, ..., N_d), support (m, B)). With a k
         table (nk, d) it solves every k at once (``solve.batched``): the
         blocks (nk, B, D, D), one Cholesky per k and block, the start
-        block X0 (m, *N) shared, and a k-batched LOBPCG; every output then
+        block X0 (m, *N) shared (or one per k, (nk, m, *N)), and a
+        k-batched LOBPCG; every output then
         has a leading k axis. ``solve.refine_np`` is the exact f64 block
         refine of one k (``FastDiag.spectral_refine_np``)."""
         from bravais_tpu_torch.eigen.lobpcg import (PROD_RR_TOL,
@@ -355,3 +367,68 @@ class BlochHelmholtz:
                            self.qp_fastdiag().spectral_refine_np(support, k,
                                                                  nev))
         return solve
+
+
+class HelmholtzSlab:
+    """One rank's slab of a ``BlochHelmholtz`` split along its first dof
+    axis over a process group (``parallel.mesh.KMesh``): domain
+    decomposition of one k's operator, the reference's dof-axis sharding
+    (``tests/test_domain_decomposition.py``).
+
+    Rank r owns elements [r·n₁/P, (r+1)·n₁/P) of axis 0 and their n₁/P·p
+    leading dof planes (``dofs``; ``take`` cuts them from a global
+    block), so its blocks are (rows, n₁/P·p, N₂, ...). ``apply_A``,
+    ``apply_M``, ``apply_AM`` run the operator's element apply (the h1
+    kernel on CUDA) on the slab's elements, with the coefficient planes
+    cut to them, and exchange the one-plane halo with the neighbouring
+    ranks (``parallel/halo.py``); ``diag_A`` scatters the slab's element
+    diagonals through the same exchange. Every rank makes each call
+    together with the others. Refuses n₁ % P ≠ 0."""
+
+    def __init__(self, op: BlochHelmholtz, mesh):
+        from bravais_tpu_torch.parallel.halo import slab
+        self.op, self.mesh = op, mesh
+        sp = op.space
+        d, p = sp.dim, sp.p
+        self.space, self.dtype, self.rdtype = sp, op.dtype, op.rdtype
+        self.device = op.device
+        e0, ne = slab(sp.grid.shape[0], mesh)
+        self.dofs = slice(e0 * p, (e0 + ne) * p)
+        per = int(np.prod(sp.grid.shape[1:]))
+        self._consts = op.consts().elements(e0 * per, (e0 + ne) * per)
+        n = (ne,) + tuple(sp.grid.shape[1:])
+        # The element diagonals of the slab, scattered over the mesh.
+        self._diag_S, self._diag_Ma = (
+            dtensor.scatter_add_qp(
+                torch.as_tensor(e[e0:e0 + ne][None], device=self.device),
+                n, (p,) * d, (True,) * d, [None] * d, mesh)[0]
+            .to(self.rdtype) for e in op._diagonal_elements())
+
+    def take(self, u: torch.Tensor) -> torch.Tensor:
+        """This rank's slab of a global block (..., N₁, ..., N_d)."""
+        return u[(Ellipsis, self.dofs) + (slice(None),)
+                 * (self.space.dim - 1)]
+
+    def _apply(self, u: torch.Tensor, k, want: str):
+        d = self.space.dim
+        flat = u.reshape((-1,) + tuple(u.shape[u.ndim - d:])).to(self.dtype)
+        return tuple(t.reshape(u.shape) if t is not None else None
+                     for t in apply_global(self.space, flat, self._consts,
+                                           k, want, mesh=self.mesh))
+
+    def apply_A(self, u: torch.Tensor, k) -> torch.Tensor:
+        """A(k) u on a slab block (rows, n₁/P·p, N₂, ...)."""
+        return self._apply(u, self.op._k(k), "A")[0]
+
+    def apply_M(self, u: torch.Tensor, k=None) -> torch.Tensor:
+        """M u on a slab block."""
+        return self._apply(u, np.zeros(self.space.dim), "M")[1]
+
+    def apply_AM(self, u: torch.Tensor, k):
+        """(A(k) u, M u) on a slab block from one fused element apply."""
+        return self._apply(u, self.op._k(k), "AM")
+
+    def diag_A(self, k) -> torch.Tensor:
+        """The slab's part of the real diagonal of A(k), (n₁/P·p, N₂,
+        ...)."""
+        return self.op._diag_at(k, self._diag_S, self._diag_Ma)

@@ -26,6 +26,7 @@ launches and ``launches_by_mode`` splits them by the halves computed
 
 from __future__ import annotations
 
+import copy
 import ctypes
 
 import numpy as np
@@ -82,6 +83,17 @@ class NdConsts:
         # hold the memory).
         self.ptrs = (self.muw.data_ptr(), self.epsw.data_ptr(),
                      self.host_tabs.ctypes.data, self.host_metric.ctypes.data)
+
+    def elements(self, lo: int, hi: int) -> "NdConsts":
+        """The same constants on the elements [lo, hi) only (a slab of
+        whole element planes: the planes' rows are row-major over the
+        element grid)."""
+        c = copy.copy(self)
+        c.muw = self.muw[lo:hi].contiguous()
+        c.epsw = self.epsw[lo:hi].contiguous()
+        c.nelem = hi - lo
+        c.ptrs = (c.muw.data_ptr(), c.epsw.data_ptr()) + self.ptrs[2:]
+        return c
 
     @classmethod
     def from_space(cls, space, eps_q64, mu_inv_q64, device) -> "NdConsts":

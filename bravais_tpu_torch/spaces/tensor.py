@@ -4,7 +4,9 @@ The device half of ``bravais_tpu/spaces/tensor.py``: the periodic element
 gather and its adjoint scatter-add (``gather``, ``scatter_add``), their
 quasi-periodic variants (``gather_axis``, ``scatter_add_axis`` with the
 Bloch wrap phase; ``gather_qp``, ``scatter_add_qp`` over every axis) and
-the sum-factorized 1D contractions (``contract``, ``contract_t``).
+the sum-factorized 1D contractions (``contract``, ``contract_t``). The
+multi-axis gathers take axis 0 of a slab split over a process group
+through ``parallel/halo.py``.
 
 Every array carries a leading block-row axis that the functions pass
 through: the port's LOBPCG hands whole blocks (rows, *dof_shape) to the
@@ -83,13 +85,18 @@ def scatter_add_axis(r: torch.Tensor, axis: int, n: int, p: int,
 
 
 def gather_qp(u: torch.Tensor, shape: Sequence[int], p: Sequence[int],
-              closed: Sequence[bool], phases) -> torch.Tensor:
+              closed: Sequence[bool], phases, mesh=None) -> torch.Tensor:
     """Quasi-periodic multi-axis gather: closed axes wrap with their
     Bloch phase (``phases[i]``: a scalar, or per k (nk,) over nk equal
-    row groups; ignored on open axes)."""
+    row groups; ignored on open axes). With ``mesh`` (a
+    ``parallel.mesh.KMesh``), axis 0 is this rank's slab of ``shape[0]``
+    elements, closed across the ranks (``parallel/halo.py``)."""
     for i in range(len(shape)):
         ax = 2 * i
-        if closed[i]:
+        if closed[i] and i == 0 and mesh is not None:
+            from bravais_tpu_torch.parallel.halo import gather_axis0
+            u = gather_axis0(u, shape[0], p[0], mesh, phases[0])
+        elif closed[i]:
             u = gather_axis(u, ax, shape[i], p[i], phases[i])
         else:
             s = u.shape
@@ -98,11 +105,14 @@ def gather_qp(u: torch.Tensor, shape: Sequence[int], p: Sequence[int],
 
 
 def scatter_add_qp(r: torch.Tensor, shape: Sequence[int], p: Sequence[int],
-                   closed: Sequence[bool], phases) -> torch.Tensor:
-    """Adjoint of :func:`gather_qp`."""
+                   closed: Sequence[bool], phases, mesh=None) -> torch.Tensor:
+    """Adjoint of :func:`gather_qp` (``mesh`` as there)."""
     for i in reversed(range(len(shape))):
         ax = 2 * i
-        if closed[i]:
+        if closed[i] and i == 0 and mesh is not None:
+            from bravais_tpu_torch.parallel.halo import scatter_add_axis0
+            r = scatter_add_axis0(r, shape[0], p[0], mesh, phases[0])
+        elif closed[i]:
             r = scatter_add_axis(r, ax, shape[i], p[i], phases[i])
         else:
             s = r.shape

@@ -156,7 +156,27 @@ median wall over its wall (below 1: the overlap gains):
    ``torch.linalg.eigh``'s call and device times (``library_ms``,
    ``library_device_ms``), and the bound; the shapes first launched by
    ``run(chunk=4)`` and ``[certify]`` are timed on their logged inputs
-   too, with their calls on the main paths.
+   too, with their calls on the main paths;
+13. ``[shard]`` (between ``[certify]`` and ``[launched]``): the sharded
+   paths in child processes of this script (``--shard-rank OUT``, the
+   group from a launcher's environment, as ``torchrun`` sets it): first
+   ``SHARD_GLOO`` gloo ranks sharing the card (NCCL refuses two ranks on
+   one device and gloo moves no CUDA tensor, so the halo planes and the
+   reductions go through explicit host copies; each rank prints its
+   transport), then ``torch.cuda.device_count()`` NCCL ranks, one card
+   each. gloo: the headline through ``run_warm_sharded`` (one segment a
+   rank) and ``run``, config 5's TRI and FCC on both engines and config
+   3 through ``run`` (what ``--shard`` calls), each with the counts set
+   to 0 just before and read just after (each rank's launches equal to
+   its share's recorded batches), the path's own gates, and rank 0's run
+   of the same problem on one rank (iterations per k within ±1, bands
+   within 1e-6); domain decomposition of the FCC n=8 p=4 field applies
+   (16 rows, A and the fused pair), the TRI n=8 p=4 H1 apply and a
+   Jacobi LOBPCG on it (each slab within 1e-5 of the one-rank apply, the
+   eigenvalues within 1e-5 of rank 0's one-rank LOBPCG and within config
+   5's matrix-free bar of the analytic bands); each rank holds the
+   shapes it launched against the plain versions, which the kernels line
+   takes in. NCCL: the headline's ``run`` and the field applies.
 
 The last two lines of standard output are a JSON object describing the
 kernels (with ``main_path_shapes``: every logged shape and its calls)
@@ -1796,6 +1816,35 @@ def expected_batched_launches(iterations, sweep, steps=None):
     return out
 
 
+def analytic_check(kc, lat):
+    """The headline's gates on a sweep result (text, ok): the eigenvalues
+    within ``ERR_BAR`` of the analytic bands at ``kc`` and no refine
+    fallback."""
+    def check(res):
+        err = max(eig_error(res.eigenvalues[i], lat, k, mmax=3, mult=2)
+                  for i, k in enumerate(kc))
+        return (f"max eig err {err:.3e} (<{ERR_BAR:g}), refine "
+                f"fallbacks {res.fallbacks}",
+                err < ERR_BAR and res.fallbacks == 0)
+    return check
+
+
+def diel_check(oracle):
+    """Config 3's gates on a sweep result (text, ok): the certify
+    record's bands (``diel_errors``) and the refined residuals."""
+    import numpy as np
+
+    def check(res):
+        errs = diel_errors(res, oracle)
+        resid = res.residuals.max()
+        return ("oracle errors (k index: band 1, band 10) " + ", ".join(
+            f"{ki}: {lo:.3e} {hi:.3e}" for ki, lo, hi, _ in errs)
+            + f"; max refined residual {resid:.3e}",
+            all(ok for *_, ok in errs) and np.isfinite(resid)
+            and resid < DIEL_RES_BAR)
+    return check
+
+
 def phase_batched(dev, head, setup3, rods, setup4):
     """The k-batched ``BandSweep.run`` on every engine at full width, each
     run with every count set to 0 just before and read just after: the
@@ -1825,26 +1874,8 @@ def phase_batched(dev, head, setup3, rods, setup4):
                     block=BLOCK, tol=TOL, maxiter=MAXITER,
                     device_tol=FIELD_DEVICE_TOL)
 
-    def analytic(kc, lat):
-        def check(res):
-            err = max(eig_error(res.eigenvalues[i], lat, k, mmax=3, mult=2)
-                      for i, k in enumerate(kc))
-            return (f"max eig err {err:.3e} (<{ERR_BAR:g}), refine "
-                    f"fallbacks {res.fallbacks}",
-                    err < ERR_BAR and res.fallbacks == 0)
-        return check
-
-    oracle3 = diel_oracle(kc3, op3)
-
-    def check3(res):
-        errs = diel_errors(res, oracle3)
-        resid = res.residuals.max()
-        return ("oracle errors (k index: band 1, band 10) " + ", ".join(
-            f"{ki}: {lo:.3e} {hi:.3e}" for ki, lo, hi, _ in errs)
-            + f"; max refined residual {resid:.3e}",
-            all(ok for *_, ok in errs) and np.isfinite(resid)
-            and resid < DIEL_RES_BAR)
-
+    analytic = analytic_check
+    check3 = diel_check(diel_oracle(kc3, op3))
     check2 = rods_check(kc2, op2, dev)
     paths = (("headline", kc_h, sw_h, analytic(kc_h, lat_h), None),
              ("config3", kc3, sw3, check3, op3.cheby_steps()),
@@ -2031,6 +2062,374 @@ def phase_certify(dev):
     return out
 
 
+# -- [shard]: the sharded paths over torch.distributed ---------------------
+
+#: Ranks of ``[shard]``'s gloo group, all on the one card.
+SHARD_GLOO = 2
+#: ``[shard]``'s domain-decomposition checks: FCC n=8 p=4 field applies
+#: on a block of 16 rows, the TRI n=8 p=4 H1 apply and a Jacobi LOBPCG
+#: on it (config 5's TRI, its first k), against one rank.
+DD_ROWS, DD_N, DD_NEV, DD_BLOCK, DD_TOL, DD_MAXITER = 16, 8, 6, 10, 1e-5, 400
+DD_APPLY_BAR, DD_EIG_BAR = 1e-5, 1e-5
+
+
+def _recording(sweep):
+    """Record the iterations of every k-batched solve ``sweep`` makes,
+    a shard's padding included (the launches follow the batch's
+    slowest k): returns (the list of iteration arrays, undo)."""
+    import numpy as np
+    calls, orig = [], sweep._batched_solve
+
+    def batched():
+        bsolve = orig()
+
+        def solve(*args):
+            r, support = bsolve(*args)
+            calls.append(np.reshape(np.asarray(r.iterations), -1))
+            return r, support
+        return solve
+    sweep._batched_solve = batched
+    return calls, lambda: setattr(sweep, "_batched_solve", orig)
+
+
+def _batch_launches(calls, sweep, steps):
+    """The launches of the recorded k-batched solves
+    (``expected_batched_launches`` of each, summed)."""
+    want = dict.fromkeys(("nd M", "nd AM", "nd A", "h1 A", "h1 AM", "h1 M",
+                          "jacobi"), 0)
+    for its in calls:
+        for key, v in expected_batched_launches(its, sweep, steps).items():
+            want[key] += v
+    return want
+
+
+def shard_sweep_paths(dev, jobs):
+    """[(tag, sweep, Chebyshev steps or None, run(sweep, mesh) → result,
+    the same problem on one rank run(sweep, group size) → result,
+    check(result) → (text, ok))]: the
+    FCC headline through ``run_warm_sharded`` and ``run``, config 5's TRI
+    and FCC on both engines through ``run`` (what ``config5_all14
+    --shard`` calls) and config 3's field path through ``run``. ``jobs``
+    "nccl" keeps the headline's ``run`` only."""
+    from bravais_tpu_torch.cli.config5_all14 import build, max_rel_err
+
+    lat, kc, _, sw = headline(dev)
+    head = analytic_check(kc, lat)
+    paths = [("headline run", sw, None, lambda s, m: s.run(kc, mesh=m),
+              lambda s, P: s.run(kc), head)]
+    if jobs == "nccl":
+        return paths
+    paths.insert(0, ("headline run_warm_sharded", sw, None,
+                     lambda s, m: s.run_warm_sharded(kc, m),
+                     lambda s, P: s.run_warm_sharded(kc, segments=P),
+                     head))
+    for name in ("TRI", "FCC"):
+        for engine in ("spectral", "field"):
+            lat5, kc5, _, sw5 = build(name, C5_N, C5_P, C5_NEV, C5_TOL,
+                                      C5_MAXITER, engine, dev)
+            bar = C5_SPECTRAL_BAR if engine == "spectral" else C5_FIELD_BAR
+
+            def check(res, lat5=lat5, kc5=kc5, bar=bar):
+                err = max_rel_err(lat5, kc5, res.eigenvalues)
+                return f"max rel err {err:.3e} (<{bar:g})", err < bar
+            paths.append((f"config5 {name} {engine}", sw5, None,
+                          lambda s, m, kc5=kc5: s.run(kc5, mesh=m),
+                          lambda s, P, kc5=kc5: s.run(kc5), check))
+    _, kc3, op3, sw3 = dielectric(dev)
+    paths.append(("config3 run", sw3, op3.cheby_steps(),
+                  lambda s, m: s.run(kc3, mesh=m), lambda s, P: s.run(kc3),
+                  diel_check(diel_oracle(kc3, op3))))
+    return paths
+
+
+def shard_sweeps(dev, mesh, jobs, out):
+    """Each sharded sweep of ``shard_sweep_paths`` with every count set to
+    0 just before and read just after; its launches on this rank must
+    equal its share's calls (the recorded batches). Rank 0 then runs the
+    same problem on one rank without a mesh and holds the sharded result
+    to it: iterations per k within ±1 (the batch shape moves the float32
+    reductions, as in ``[batched]``) and bands within 1e-6; every rank
+    holds it to the path's own gates."""
+    import numpy as np
+    import torch
+
+    tag_log = f"shard r{mesh.rank}"
+    for tag, sweep, steps, run, one_rank, check in shard_sweep_paths(dev,
+                                                                     jobs):
+        mesh.barrier()
+        torch.cuda.synchronize()
+        log_path(f"shard {mesh.backend} {tag}")
+        calls, undo = _recording(sweep)
+        _zero_counts()
+        t0 = time.perf_counter()
+        res = run(sweep, mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _counts()
+        undo()
+        log_path(None)
+        want = _batch_launches(calls, sweep, steps)
+        text, ok = check(res)
+        rec = {"wall_s": wall, "iterations": res.iterations.tolist(),
+               "launches": got, "expected": want,
+               "batches": [c.tolist() for c in calls]}
+        log(tag_log, f"{tag}: {len(res.iterations)} k over {mesh.size} "
+            f"ranks ({mesh.backend}), wall {wall:.3f} s ({overlap(res)}), "
+            f"iterations {res.iterations.tolist()}, this rank's batches "
+            f"{rec['batches']}, launches {got} (its share's calls {want});"
+            f" {text}")
+        if not ok:
+            raise RuntimeError(f"shard {tag}: a gate failed: {text}")
+        if got != want or got["jacobi"] <= 0:
+            raise RuntimeError(f"shard {tag}: launches {got} != the share's"
+                               f" calls {want}")
+        if mesh.rank == 0:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one = one_rank(sweep, mesh.size)
+            torch.cuda.synchronize()
+            rec["one_rank_wall_s"] = time.perf_counter() - t0
+            gap = np.abs(one.iterations - res.iterations)
+            diff = band_errors(res.eigenvalues, one.eigenvalues)
+            rec.update(one_rank_iterations=one.iterations.tolist(),
+                       band_diff=diff)
+            log(tag_log, f"{tag} on one rank: wall "
+                f"{rec['one_rank_wall_s']:.3f} s, iterations "
+                f"{one.iterations.tolist()}: the same at "
+                f"{int(np.sum(gap == 0))} of {len(gap)} k, ±1 at "
+                f"{int(np.sum(gap == 1))}; bands max diff {diff:.3e} "
+                f"(<1e-6)")
+            if np.any(gap > 1) or not diff < 1e-6:
+                raise RuntimeError(f"shard {tag}: differs from one rank")
+        out["paths"][tag] = rec
+
+
+def shard_dd(dev, mesh, jobs, out):
+    """Domain decomposition over the group: the FCC n=8 p=4 field applies
+    (``CurlCurlSlab``, A and the fused pair, the nd kernel), the TRI n=8
+    p=4 H1 apply (``HelmholtzSlab``, the h1 kernel) and (``jobs`` "all")
+    a Jacobi LOBPCG on it with the Grams reduced over the group, each
+    with every count set to 0 just before and read just after (one launch
+    an apply; the LOBPCG's those of ``expected_h1_launches``). Each slab is
+    held against the one-rank apply (relative to its largest entry,
+    < ``DD_APPLY_BAR``), the eigenvalues against rank 0's one-rank LOBPCG
+    (< ``DD_EIG_BAR`` relative) and the analytic bands (config 5's
+    matrix-free bar)."""
+    import numpy as np
+    import torch
+    from bravais_tpu_torch.cli.config5_all14 import (KFRAC, PARAMS,
+                                                     max_rel_err)
+    from bravais_tpu_torch.eigen.lobpcg import PROD_RR_TOL, lobpcg
+    from bravais_tpu_torch.eigen.precond import jacobi
+    from bravais_tpu_torch.lattices import make_lattice
+    from bravais_tpu_torch.meshing.grid import PeriodicGrid
+    from bravais_tpu_torch.operators.curlcurl import CurlCurlSlab
+    from bravais_tpu_torch.operators.helmholtz import (BlochHelmholtz,
+                                                       HelmholtzSlab)
+    from bravais_tpu_torch.spaces.h1 import H1Space
+
+    tag_log = f"shard r{mesh.rank}"
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def block(shape):
+        return torch.randn(shape, dtype=torch.complex64, device=dev,
+                           generator=gen)
+
+    def held(tag, slab_op, full, want, fn, u):
+        slab = slab_op.take(u).contiguous()
+        mesh.barrier()
+        torch.cuda.synchronize()
+        log_path(f"shard {mesh.backend} dd {tag}")
+        _zero_counts()
+        t0 = time.perf_counter()
+        got = fn(slab_op, slab)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in _counts().items() if v}
+        log_path(None)
+        ref = fn(full, u)
+        got, ref = ((got,), (ref,)) if torch.is_tensor(got) else (got, ref)
+        err = max(float((g - slab_op.take(r)).abs().max()
+                        / r.abs().max()) for g, r in zip(got, ref))
+        log(tag_log, f"dd {tag}: slab {tuple(slab.shape)} of "
+            f"{tuple(u.shape)}, transport {mesh.transport(slab)}, wall "
+            f"{wall * 1e3:.3f} ms, launches {counts} (expected {want}), "
+            f"max rel err against one rank {err:.3e} "
+            f"(<{DD_APPLY_BAR:g})")
+        if counts != want or not err < DD_APPLY_BAR:
+            raise RuntimeError(f"dd {tag}: launches {counts} or error "
+                               f"{err:.3e}")
+        out["dd"][tag] = {"wall_ms": wall * 1e3, "max_rel_err": err,
+                          "launches": counts}
+
+    out["dd"] = {}
+    _, kc4, op4 = fcc_problem(dev)
+    cs = CurlCurlSlab(op4, mesh)
+    u4 = block((DD_ROWS,) + tuple(op4.space.field_shape))
+    held("fcc A", cs, op4, {"nd A": 1}, lambda o, x: o.apply_A(x, kc4[5]),
+         u4)
+    held("fcc AM", cs, op4, {"nd AM": 1},
+         lambda o, x: o.apply_AM(x, kc4[5]), u4)
+    if jobs == "nccl":
+        return
+    lat = make_lattice("TRI", **PARAMS["TRI"])
+    op = BlochHelmholtz(H1Space.make(PeriodicGrid.make(lat, DD_N), C5_P),
+                        dtype=torch.complex64, device=dev)
+    k = lat.k_cart(KFRAC[0])
+    hs = HelmholtzSlab(op, mesh)
+    held("tri A", hs, op, {"h1 A": 1}, lambda o, x: o.apply_A(x, k),
+         block((DD_ROWS,) + tuple(op.space.dof_shape)))
+
+    X0 = block((DD_BLOCK,) + tuple(op.space.dof_shape))
+
+    def solve(o, X, **kw):
+        return lobpcg(lambda x: o.apply_A(x, k), o.apply_M, X, DD_NEV,
+                      maxiter=DD_MAXITER, tol=DD_TOL,
+                      precond=jacobi(o.diag_A(k)),
+                      AM=lambda x: o.apply_AM(x, k), rr_tol=PROD_RR_TOL,
+                      **kw)
+    mesh.barrier()
+    torch.cuda.synchronize()
+    log_path(f"shard {mesh.backend} dd tri lobpcg")
+    _zero_counts()
+    t0 = time.perf_counter()
+    r = solve(hs, hs.take(X0).contiguous(), reduce=mesh.all_reduce_)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k_: v for k_, v in _counts().items() if v}
+    log_path(None)
+    its = int(r.iterations)
+    want = {"h1 M": 1, "h1 AM": its + 2 * -(-its // 16), "jacobi": its + 1}
+    lam = r.eigenvalues.double().cpu().numpy()
+    err = max_rel_err(lat, k[None], lam[None])
+    one = None
+    if mesh.rank == 0:
+        t0 = time.perf_counter()
+        r1 = solve(op, X0)
+        torch.cuda.synchronize()
+        one = (r1.eigenvalues.double().cpu().numpy().tolist(),
+               int(r1.iterations), time.perf_counter() - t0)
+    lam1, its1, wall1 = mesh.broadcast_object(one)
+    diff = float(np.max(np.abs(lam - lam1) / np.abs(lam1)))
+    log(tag_log, f"dd tri lobpcg: {op.space.ndofs} dofs over {mesh.size} "
+        f"ranks (transport {mesh.transport(X0)}), Jacobi, {its} iterations "
+        f"in {wall:.3f} s (one rank: {its1} in {wall1:.3f} s), launches "
+        f"{counts} (expected {want}), eigenvalues max rel diff from one "
+        f"rank {diff:.3e} (<{DD_EIG_BAR:g}), max rel err against the "
+        f"analytic bands {err:.3e} (<{C5_FIELD_BAR:g})")
+    if counts != want or not diff < DD_EIG_BAR or not err < C5_FIELD_BAR:
+        raise RuntimeError("dd tri lobpcg: a gate failed")
+    out["dd"]["tri lobpcg"] = {"wall_s": wall, "iterations": its,
+                               "one_rank_wall_s": wall1,
+                               "one_rank_iterations": its1,
+                               "eig_diff": diff, "eig_err": err,
+                               "launches": counts}
+
+
+def shard_rank(out_dir, backend, jobs):
+    """One rank of ``[shard]``'s group (``--shard-rank``): the group from
+    the launcher's environment (``kpoint_mesh``), the rank's card
+    ``cuda:{LOCAL_RANK mod the card count}``, the kernels loaded (built
+    by the parent, or here under ``torchrun``), every kernel call logged
+    by shape; the sharded sweeps (``shard_sweeps``) and the domain
+    decomposition (``shard_dd``), then every logged shape held against
+    the plain versions (``phase_launched``). Writes
+    ``OUT/rank<r>.json``."""
+    import torch
+    sys.path.insert(0, str(REPO))
+    import bravais_tpu_torch  # noqa: F401  (precision flags)
+    from bravais_tpu_torch.parallel.mesh import kpoint_mesh
+    from bravais_tpu_torch.utils import cuda_build
+
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    dev = torch.device("cuda", local % torch.cuda.device_count())
+    mesh = kpoint_mesh(backend, dev)
+    out = {"rank": mesh.rank, "size": mesh.size, "backend": backend,
+           "device": str(dev), "paths": {}, "ok": False}
+    try:
+        cuda_build.build_all()
+        install_launch_log()
+        log(f"shard r{mesh.rank}", f"rank {mesh.rank} of {mesh.size} "
+            f"({backend}) on {dev}, {torch.cuda.get_device_name(dev)}; k "
+            f"rows gathered with all_gather_object over {backend}; halo "
+            f"and reductions of CUDA tensors: "
+            f"{mesh.transport(torch.zeros(1, device=dev))}")
+        shard_sweeps(dev, mesh, jobs, out)
+        shard_dd(dev, mesh, jobs, out)
+        out["launched_err"] = phase_launched(dev)
+        out["shapes"] = {
+            f"{rec['path']} r{mesh.rank}: {shape_label(kernel, shape)}":
+            [kernel, rec["calls"]] for (kernel, shape), rec in LAUNCHED.items()}
+        mesh.barrier()
+        out["ok"] = True
+    finally:
+        Path(out_dir, f"rank{mesh.rank}.json").write_text(json.dumps(out))
+        mesh.close()
+    return 0
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_shard(dev):
+    """``[shard]``: the sharded paths in child processes of this script
+    (``--shard-rank``), as ``torchrun`` starts them (RANK, WORLD_SIZE,
+    LOCAL_RANK, MASTER_ADDR=localhost, MASTER_PORT): ``SHARD_GLOO`` gloo
+    ranks on the one card (NCCL refuses two ranks on one device; gloo
+    moves no CUDA tensor, so the halo and the reductions go through
+    explicit host copies, and the transport is printed), then
+    ``torch.cuda.device_count()`` NCCL ranks, one card each, on the
+    headline's ``run`` and the field applies. Every rank must pass;
+    returns {backend: [each rank's record]}."""
+    import tempfile
+
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    groups = {}
+    for backend, size, jobs in (("gloo", SHARD_GLOO, "all"),
+                                ("nccl", torch.cuda.device_count(), "nccl")):
+        with tempfile.TemporaryDirectory() as tmp:
+            port = str(_free_port())
+            cmd = [sys.executable, str(REPO / "chip_smoke.py"),
+                   "--shard-rank", tmp, "--backend", backend, "--jobs", jobs]
+            log("shard", f"{size} {backend} rank(s): {' '.join(cmd[1:])}")
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen(
+                cmd, cwd=REPO, text=True, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT,
+                env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(size),
+                         LOCAL_RANK=str(r), MASTER_ADDR="localhost",
+                         MASTER_PORT=port)) for r in range(size)]
+            try:
+                logs = [p.communicate(timeout=600)[0] for p in procs]
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            wall = time.perf_counter() - t0
+            for r, text in enumerate(logs):
+                for line in text.splitlines():
+                    print(f"  {line}" if r else line, flush=True)
+            recs = []
+            for r, p in enumerate(procs):
+                f = Path(tmp, f"rank{r}.json")
+                rec = json.loads(f.read_text()) if f.exists() else {}
+                if p.returncode or not rec.get("ok"):
+                    raise RuntimeError(f"shard {backend} rank {r} exited "
+                                       f"{p.returncode}: {logs[r][-3000:]}")
+                recs.append(rec)
+        log("shard", f"{backend}: {size} rank(s) passed in {wall:.1f} s "
+            f"(process start, stencils and the one-rank runs included)")
+        groups[backend] = recs
+    return groups
+
+
 def phase_cli(dev):
     """Config 4's BCC half through the CLI, in a subprocess as a user
     starts it (``CLI_ARGS``), then again with ``--resume``. Gates: both
@@ -2098,13 +2497,21 @@ def phase_cli(dev):
 
 
 def main():
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--shard-rank", metavar="OUT",
+                    help="run as one rank of [shard]'s group (the group "
+                    "from the launcher's environment; results to OUT)")
+    ap.add_argument("--backend", choices=("gloo", "nccl"), default="nccl")
+    ap.add_argument("--jobs", choices=("all", "nccl"), default="all")
+    args = ap.parse_args()
 
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    if args.shard_rank:
+        return shard_rank(args.shard_rank, args.backend, args.jobs)
     sys.path.insert(0, str(REPO))
     import bravais_tpu_torch  # noqa: F401  (precision flags)
     from bravais_tpu_torch.utils import cuda_build
@@ -2173,6 +2580,7 @@ def main():
     batched = phase_batched(dev, head, setup3, rods, setup4)
     cert = phase_certify(dev)
     log_path(None)
+    shard = phase_shard(dev)
     launched_err = phase_launched(dev)
     # The profiler's phases come last, so that the launch-bound sweeps
     # run in a process it has not traced.
@@ -2213,16 +2621,36 @@ def main():
         "config5_field": c5["field"]["jacobi"],
         **{f"batched_{path}": got["jacobi"] for path, got in batched.items()},
         **{f"certify_eps{e:g}": got["jacobi"] for e, got in cert.items()}}
+    # [shard]: each rank's launches on each sharded path, and the shapes
+    # its launch log held against the plain versions.
+    shard_runs = [(f"shard_{backend}_r{rec['rank']}_{tag.replace(' ', '_')}",
+                   got["launches"])
+                  for backend, recs in shard.items() for rec in recs
+                  for part in ("paths", "dd")
+                  for tag, got in rec.get(part, {}).items()]
+    for key, got in shard_runs:
+        jac["launches_by_path"][key] = got.get("jacobi", 0)
+    for rec_k, kernel in ((jac, "jacobi"), (nd_rec, "nd"), (h1_rec, "h1")):
+        for recs in shard.values():
+            for rec in recs:
+                rec_k["max_abs_err"] = max(rec_k["max_abs_err"],
+                                           rec["launched_err"][kernel])
+                rec_k["main_path_shapes"].update(
+                    {label: calls for label, (kk, calls)
+                     in rec["shapes"].items() if kk == kernel})
     jac["launches"] = sum(jac["launches_by_path"].values())
     nd_rec["launches_by_path"] = {
-        path: {"M": got["nd M"], "AM": got["nd AM"], "A": got["nd A"]}
+        path: {w: got.get(f"nd {w}", 0) for w in ("M", "AM", "A")}
         for path, got in (("config3_field", diel), ("fcc_field", fcc_field),
                           ("batched_config3", batched["config3"]),
                           ("batched_config3_chunk4",
                            batched["config3_chunk4"]),
                           ("batched_fcc_field", batched["fcc_field"]),
                           *((f"certify_eps{e:g}", got)
-                            for e, got in cert.items()))}
+                            for e, got in cert.items()),
+                          *((key, got) for key, got in shard_runs
+                            if any(got.get(f"nd {w}") for w in
+                                   ("M", "AM", "A"))))}
     nd_rec["launches_by_mode"] = {
         mode: sum(v[mode] for v in nd_rec["launches_by_path"].values())
         for mode in ("M", "AM", "A")}
@@ -2237,12 +2665,17 @@ def main():
                                for w in ("A", "AM", "M")}
            for path in ("config3", "config3_chunk4", "config2")},
         **{f"certify_eps{e:g}": {w: got[f"h1 {w}"] for w in ("A", "AM", "M")}
-           for e, got in cert.items()}}
+           for e, got in cert.items()},
+        **{key: {w: got.get(f"h1 {w}", 0) for w in ("A", "AM", "M")}
+           for key, got in shard_runs
+           if any(got.get(f"h1 {w}") for w in ("A", "AM", "M"))}}
     h1_rec["launches"] = diel["h1"] + sum(
         v for path in (rods2d, te, c5["field"], batched["config3"],
                        batched["config3_chunk4"], batched["config2"],
                        *cert.values())
-        for key, v in path.items() if key.startswith("h1"))
+        for key, v in path.items() if key.startswith("h1")) + sum(
+        v for _, got in shard_runs for key, v in got.items()
+        if key.startswith("h1"))
     print(json.dumps({"kernels": [jac, nd_rec, h1_rec]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -234,7 +234,7 @@ def test_engine_rule(problem, engine, n, invariant, want):
     (["--engine", "gmg"], "needs QPGMG"),
     (["--n", "2"], "needs QPGMG"),
     (["--mode", "warm-chain"], "--mode warm-chain is not ported"),
-    (["--shard"], "--shard"),
+    (["--shard", "--device", "cuda"], "no CUDA device"),
     (["--device", "cuda"], "no CUDA device"),
     ([], "no CUDA device"),
     (["--precision", "f64", "--device", "cuda"], "--precision f64 runs on "

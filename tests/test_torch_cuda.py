@@ -3,7 +3,9 @@ H1 element kernels against their plain torch versions, the field
 engine's and the scalar Helmholtz operator's fused (A, M) applies and one
 multigrid V-cycle on the card against the CPU, the warm spectral, field
 and scalar sweeps and the k-batched ``run`` of every engine on the card
-against the same sweeps on the CPU.
+against the same sweeps on the CPU, and two gloo ranks sharing the card
+(a k-sharded ``run`` and a domain-decomposed field apply against one
+rank).
 Every test skips without a CUDA device.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
@@ -636,3 +638,57 @@ def test_overlapped_run_warm_on_cuda_equals_serial(cuda, engine,
         np.testing.assert_array_equal(got.eigenvectors[i],
                                       X[:sweep.nev].cpu().numpy())
     assert got.fallbacks == 0
+
+
+@pytest.fixture(scope="module")
+def card_ranks(tmp_path_factory):
+    """Two gloo ranks on the one card (``tests/torch_ranks.py ... cuda``):
+    rank 0's results, rank 1's."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    tmp = tmp_path_factory.mktemp("card_ranks")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(repo, "tests", "torch_ranks.py"),
+         str(r), "2", str(tmp / "store"), str(tmp), "cuda"], cwd=repo,
+        env=dict(os.environ, PYTHONPATH=repo), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert all(p.returncode == 0 for p in procs), [t[-3000:] for t in logs]
+    out = []
+    for r in range(2):
+        with open(tmp / f"rank{r}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def test_sharded_run_on_cuda_equals_one_rank(card_ranks):
+    """The FCC headline problem at n=4 over two gloo ranks on the card
+    (``run`` with the mesh): every rank returns the one-rank run's bands
+    (to 1e-6 relative) and its iterations within ±1 (the batch shape
+    moves the float32 reductions)."""
+    one = card_ranks[0]["one_rank"]
+    for got in card_ranks:
+        rel = np.abs(got["run"]["eigenvalues"] - one["eigenvalues"]) \
+            / np.abs(one["eigenvalues"])
+        assert rel.max() < 1e-6
+        assert np.abs(got["run"]["iterations"]
+                      - one["iterations"]).max() <= 1
+
+
+def test_dd_apply_on_cuda_equals_one_rank(card_ranks):
+    """The fused field apply of a slab (FCC n=4 p=4, 4 rows, the nd
+    kernel) over two gloo ranks on the card, the halo through host
+    copies, equals the one-rank apply to 1e-5 relative."""
+    for got in card_ranks:
+        assert got["transport"] == "gloo via host"
+        assert got["dd_err"] < 1e-5

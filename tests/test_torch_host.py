@@ -118,7 +118,9 @@ def test_import_keeps_jax_out():
             "bravais_tpu_torch.utils.timing, "
             "bravais_tpu_torch.utils.native, "
             "bravais_tpu_torch.utils.profiling, "
-            "bravais_tpu_torch.utils.debug; "
+            "bravais_tpu_torch.utils.debug, "
+            "bravais_tpu_torch.parallel, bravais_tpu_torch.parallel.mesh, "
+            "bravais_tpu_torch.parallel.halo; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'bravais_tpu.'))] "
             "+ [m for m in ('bravais_tpu', 'triton') if m in sys.modules]; "
