@@ -305,10 +305,11 @@ class BlochCurlCurl:
 
     def nd_consts(self) -> NdConsts:
         """The Nédélec kernel's tables, metric and ε·w, μ⁻¹·w planes on
-        the device (built once)."""
+        the device, in the working real precision (built once)."""
         if self._nd is None:
             self._nd = NdConsts.from_space(self.space, self._eps_q64,
-                                           self._mu_inv_q64, self.device)
+                                           self._mu_inv_q64, self.device,
+                                           self.rdtype)
         return self._nd
 
     def _gather_stacked(self, u, ph, mesh=None):

@@ -54,23 +54,27 @@ def comp_shapes(p: int):
 
 class NdConsts:
     """The kernel's constant inputs on one device: the 1D tables
-    (4, q, l) float32 (Bc, Dc, Bo, Do; the open ones, (q, p), padded with a
-    zero column), the coefficient planes (E, q, q, q) and the affine metric
-    J, Ginv, detJ (signed) as host floats. ``ndof`` = 3·p·l² values per
-    element-row."""
+    (4, q, l) (Bc, Dc, Bo, Do; the open ones, (q, p), padded with a zero
+    column), the coefficient planes (E, q, q, q) and the metric (J, Ginv,
+    1/detJ) on the host, all in ``rdtype`` (float32, the kernel's; float64
+    for a complex128 plain apply), and J, Ginv, detJ (signed) as host
+    floats. ``ndof`` = 3·p·l² values per element-row."""
 
-    def __init__(self, Bc, Dc, Bo, Do, muw, epsw, J, Ginv, detJ, device):
+    def __init__(self, Bc, Dc, Bo, Do, muw, epsw, J, Ginv, detJ, device,
+                 rdtype=torch.float32):
         q, l = np.shape(Bc)
         tabs = np.stack([np.pad(np.asarray(T, np.float64),
                                 ((0, 0), (0, l - np.shape(T)[1])))
                          for T in (Bc, Dc, Bo, Do)])
         self.q, self.l, self.p = q, l, l - 1
         self.ndof = 3 * self.p * l * l
-        self.host_tabs = np.ascontiguousarray(tabs, np.float32)
+        self.rdtype = rdtype
+        npdt = torch.empty((), dtype=rdtype).numpy().dtype
+        self.host_tabs = np.ascontiguousarray(tabs, npdt)
         self.tables = torch.as_tensor(self.host_tabs, device=device)
-        self.muw = torch.as_tensor(np.ascontiguousarray(muw, np.float32),
+        self.muw = torch.as_tensor(np.ascontiguousarray(muw, npdt),
                                    device=device)
-        self.epsw = torch.as_tensor(np.ascontiguousarray(epsw, np.float32),
+        self.epsw = torch.as_tensor(np.ascontiguousarray(epsw, npdt),
                                     device=device)
         self.nelem = self.muw.shape[0]
         self.J = np.asarray(J, np.float64)
@@ -78,7 +82,7 @@ class NdConsts:
         self.detJ = float(detJ)
         self.host_metric = np.concatenate(
             [self.J.ravel(), self.Ginv.ravel(), [1.0 / self.detJ]]
-        ).astype(np.float32)
+        ).astype(npdt)
         # The launch's constant pointers, taken once (the arrays above
         # hold the memory).
         self.ptrs = (self.muw.data_ptr(), self.epsw.data_ptr(),
@@ -96,9 +100,11 @@ class NdConsts:
         return c
 
     @classmethod
-    def from_space(cls, space, eps_q64, mu_inv_q64, device) -> "NdConsts":
+    def from_space(cls, space, eps_q64, mu_inv_q64, device,
+                   rdtype=torch.float32) -> "NdConsts":
         """Tables, metric and ε·w, μ⁻¹·w planes of a ``NedelecSpace``
-        (coefficients sampled at its quadrature points, (n₁,q,n₂,q,n₃,q))."""
+        (coefficients sampled at its quadrature points, (n₁,q,n₂,q,n₃,q))
+        in ``rdtype``."""
         sp = space
         qshape = tuple(x for n in sp.grid.shape for x in (n, sp.q))
         wq = np.asarray(sp.quad_weight(), np.float64)
@@ -110,7 +116,7 @@ class NdConsts:
 
         return cls(sp.closed.B, sp.closed.D, sp.open.B, sp.open.D,
                    plane(mu_inv_q64), plane(eps_q64), sp.grid.J, sp.grid.Ginv,
-                   np.linalg.det(sp.grid.J), device)
+                   np.linalg.det(sp.grid.J), device, rdtype)
 
 
 def work(nblocks: int, c: NdConsts, want: str = "AM"):
@@ -144,8 +150,8 @@ def _tabs(T, comp, deriv=None):
 
 
 def nedelec_apply_plain(ue: torch.Tensor, c: NdConsts, want: str = "AM"):
-    """Plain torch version of the kernel: (y, m) with None for the half
-    not in ``want``."""
+    """Plain torch version of the kernel, in the constants' precision:
+    (y, m) with None for the half not in ``want``."""
     E, n = c.nelem, c.p * c.l * c.l
     rows = ue.shape[0] // E
     x = [ue[:, s * n:(s + 1) * n].reshape((rows, E) + ext)
@@ -205,6 +211,9 @@ def _check(ue: torch.Tensor, c: NdConsts):
         raise ValueError(f"nedelec_apply takes a contiguous complex64 "
                          f"(rows·{c.nelem}, {c.ndof}) tensor, got "
                          f"{ue.dtype} {tuple(ue.shape)}")
+    if c.rdtype != torch.float32:
+        raise ValueError(f"the nd kernel takes float32 constants, got "
+                         f"{c.rdtype}")
     if c.muw.device != ue.device:
         raise ValueError(f"coefficients on {c.muw.device}, dofs on "
                          f"{ue.device}")

@@ -3,6 +3,7 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py        # needs one card; no arguments
+    python3 chip_smoke.py --four # the four-card records (4 cards)
 
 Phases, one line each (a failed gate raises and the script exits
 non-zero; without a CUDA device it exits 1 before doing anything). Every
@@ -176,7 +177,38 @@ median wall over its wall (below 1: the overlap gains):
    eigenvalues within 1e-5 of rank 0's one-rank LOBPCG and within config
    5's matrix-free bar of the analytic bands); each rank holds the
    shapes it launched against the plain versions, which the kernels line
-   takes in. NCCL: the headline's ``run`` and the field applies.
+   takes in. NCCL: the headline's ``run`` and the field applies;
+14. ``[certify-prod]`` (after ``[certify]``): the production-size
+   config-3 certification module (``python -m
+   bravais_tpu_torch.cli.certify_dielectric``) cut to CUB n=4 p=2, nk=6,
+   k indices 0, 1 and 5: the full f32 warm sweep on the card (the nd, h1
+   and Jacobi kernels, launches equal to the sweep's calls and logged by
+   shape for ``[launched]``), the cold complex128 oracle of the sampled
+   k on the host; its JSON lines and verdict, the oracle converged at
+   every k and its band ends within 1e-9 of the dense complex128 solve;
+15. ``[scale]``: ``python -m bravais_tpu_torch.cli.scale_demo``'s
+   models on the card: part single's footprint on the headline's
+   spectral warm solve (FCC p=4, nudged Γ and X) at n = 8 and 12 (each
+   solve's peak device memory, the fitted count of (B, D, D) complex64
+   arrays within 10% of each, the bands within the analytic bar, the
+   Jacobi launches equal to the solves' eigensolves, the largest n the
+   fit puts under 90% of the card), and part dd's one-card model (its
+   2-iteration FCC field LOBPCG and apply at n = 8, 12, 16, 24 through
+   the nd kernel, bytes a dof fitted within 10% of each peak, and the n
+   it picks for four ranks); after the kernel times, the nd kernel at
+   that n's slab shape (16 rows of n³/4 elements) held against the plain
+   version and timed.
+
+``--four`` runs instead, on every card of a machine with at least four,
+what exists only across cards, each job under ``python -m
+torch.distributed.run --standalone --nproc-per-node <cards>`` (NCCL, one
+card a rank): phase 13's jobs (``--shard-rank``, every path); the CLI's
+``--shard`` on the headline problem in both modes (``--mode warm`` and
+``batched``) against the same run on one card (bands within the analytic
+bar and 1e-6 of one card); ``scale_demo --part dd`` (an FCC field LOBPCG
+whose one-card footprint exceeds the card, dof-sharded); then, on card
+0, the nd kernel at the dd slab's shape held against the plain version
+and timed. Its last line is the same JSON result with the card count.
 
 The last two lines of standard output are a JSON object describing the
 kernels (with ``main_path_shapes``: every logged shape and its calls)
@@ -256,6 +288,16 @@ BATCH_CHUNK = 4
 # 9) against the dense complex128 oracle; the native assembly's bar.
 CERT_N, CERT_P, CERT_EPS, CERT_NEV, CERT_BLOCK = 4, 2, (13.0, 30.0), 5, 9
 CERT_BAR, NATIVE_BAR = 1e-6, 1e-12
+# ``[certify-prod]``: the production-size certification module
+# (``python -m bravais_tpu_torch.cli.certify_dielectric``) cut to CUB n=4
+# p=2, nk=6, k indices 0, 1 and 5 (the f32 sweep on the card, the
+# complex128 oracle on the host); its oracle's bar against the dense
+# complex128 solve.
+CERT_PROD_ARGS = ("--n", "4", "--p", "2", "--nk", "6", "--k-indices",
+                  "0,1,5")
+CERT_PROD_DENSE_BAR = 1e-9
+# ``[scale]``: ``scale_demo --part single``'s peaks at these n.
+SCALE_NS = (8, 12)
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and float32 flop/s
 # outside the tensor cores.
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -1975,6 +2017,26 @@ def phase_batched(dev, head, setup3, rods, setup4):
     return launches
 
 
+def dense_bands_nd(sp, eps, k64, nev, dev, AM=None):
+    """The ``nev`` lowest bands of the Nédélec discretization ``sp`` at
+    ``k64`` by a dense complex128 solve with the curl-curl kernel removed
+    (``dense.assemble_nedelec`` on the host, or its (A, M) ``AM``; G from
+    ``apply_Gk`` in complex128 on ``dev``; the reduced pencil by
+    scipy)."""
+    import numpy as np
+    import torch
+    from bravais_tpu_torch.operators.curlcurl import BlochCurlCurl
+    from bravais_tpu_torch.operators.dense import (assemble_nedelec,
+                                                   deflated_nedelec_bands)
+    A, M = AM if AM is not None else assemble_nedelec(sp, k64, eps=eps)
+    nh = int(np.prod(sp.dof_shape))
+    units = torch.eye(nh, dtype=torch.complex128, device=dev).reshape(
+        (nh,) + sp.dof_shape)
+    op64 = BlochCurlCurl(sp, eps=eps, dtype=torch.complex128, device=dev)
+    G = op64.apply_Gk(units, k64).reshape(nh, -1).T.cpu().numpy()
+    return deflated_nedelec_bands(A, M, G, nev)
+
+
 def phase_certify(dev):
     """``tests/test_torch_certify.py``'s certification on the card: CUB
     n=4 p=2 with an ε = 13 and an ε = 30 sphere (r = 0.25a), the X point,
@@ -1995,8 +2057,7 @@ def phase_certify(dev):
     from bravais_tpu_torch.meshing.grid import PeriodicGrid
     from bravais_tpu_torch.operators.coefficients import dielectric_sphere
     from bravais_tpu_torch.operators.curlcurl import BlochCurlCurl
-    from bravais_tpu_torch.operators.dense import (assemble_nedelec,
-                                                   deflated_nedelec_bands)
+    from bravais_tpu_torch.operators.dense import assemble_nedelec
     from bravais_tpu_torch.spaces.nedelec import NedelecSpace
     from bravais_tpu_torch.utils import native
 
@@ -2008,9 +2069,6 @@ def phase_certify(dev):
     sp = NedelecSpace.make(PeriodicGrid.make(lat, CERT_N), CERT_P)
     k = np.asarray(lat.k_cart((0.5, 0.0, 0.0)), np.float32)
     k64 = k.astype(np.float64)
-    nh = int(np.prod(sp.dof_shape))
-    units = torch.eye(nh, dtype=torch.complex128, device=dev).reshape(
-        (nh,) + sp.dof_shape)
     out = {}
     for eps_in in CERT_EPS:
         eps = dielectric_sphere(eps_in, 1.0, 0.25, 0.5 * lat.A.sum(axis=0),
@@ -2035,10 +2093,8 @@ def phase_certify(dev):
         t_nat = time.perf_counter() - t0
         nat = max(float(np.max(np.abs(An - A)) / np.max(np.abs(A))),
                   float(np.max(np.abs(Mn - M)) / np.max(np.abs(M))))
-        op64 = BlochCurlCurl(sp, eps=eps, dtype=torch.complex128, device=dev)
-        G = op64.apply_Gk(units, k64).reshape(nh, -1).T.cpu().numpy()
         t0 = time.perf_counter()
-        oracle = deflated_nedelec_bands(A, M, G, CERT_NEV)
+        oracle = dense_bands_nd(sp, eps, k64, CERT_NEV, dev, (A, M))
         t_or = time.perf_counter() - t0
         rel = np.abs(res.eigenvalues[0] - oracle) / np.abs(oracle)
         log("certify", f"eps {eps_in:g}: {sp.ndofs} dofs, iterations "
@@ -2060,6 +2116,150 @@ def phase_certify(dev):
                                f"by {nat:.3e}")
         out[eps_in] = got
     return out
+
+
+def phase_certify_prod(dev):
+    """``[certify-prod]``: ``cli/certify_dielectric.py``'s ``certify`` at
+    ``CERT_PROD_ARGS`` (config 3's problem cut to CUB n=4 p=2, nk=6): the
+    full f32 warm sweep on the card (project-cheby at the production
+    target, fastdiag, device stop 1e-4, the f64 host Rayleigh–Ritz: the
+    nd, h1 and Jacobi kernels), then the cold complex128 matrix-free
+    oracle of the sampled k on the host (a pool of processes), with every
+    count set to 0 just before and read just after. Logs the module's
+    JSON lines and verdict. Gates: the oracle converged at every sampled
+    k and its lowest and highest band within ``CERT_PROD_DENSE_BAR``
+    relative of the dense complex128 solve of the same discretization
+    (``dense_bands_nd``); the f32 bands finite; the launches equal to the
+    sweep's calls (``expected_launches``). Returns the launches."""
+    import numpy as np
+    import torch
+    from bravais_tpu_torch.cli import certify_dielectric as cd
+
+    args = cd.parser().parse_args(list(CERT_PROD_ARGS))
+    log_path("certify-prod")
+    torch.cuda.synchronize()
+    _zero_counts()
+    got = cd.certify(args)
+    counts = _counts()
+    log_path(None)
+    want = expected_launches(got["f32"].iterations, got["steps"])
+    want = {"nd M": want["nd M"], "nd AM": want["nd AM"],
+            "nd A": want["nd A"], "h1 A": want["h1"], "h1 AM": 0,
+            "h1 M": 0, "jacobi": want["jacobi"]}
+    for rec in got["records"] + [got["summary"]]:
+        log("certify-prod", json.dumps(rec))
+    lat, sp, eps = cd.problem(args.n, args.p, args.eps_in, args.radius)
+    kc = cd.kpoints(lat, args.nk)
+    t0 = time.perf_counter()
+    dense = {}
+    for rec in got["records"]:
+        lam = dense_bands_nd(sp, eps, kc[rec["k_index"]], args.nev, dev)
+        dense[rec["k_index"]] = max(
+            abs(rec["lam_lo"] - lam[0]) / abs(lam[0]),
+            abs(rec["lam_hi"] - lam[-1]) / abs(lam[-1]))
+    summ = got["summary"]
+    log("certify-prod", f"{summ['ndofs']} dofs, f32 sweep on the card "
+        f"{got['f32_wall']:.3f} s (iters/k {got['f32'].iterations.tolist()}, "
+        f"Chebyshev steps {got['steps']}), complex128 oracle on the host "
+        f"{got['f64_wall']:.3f} s ({got['oracle_steps']} steps); the "
+        f"module's verdict: certified {summ['certified']}, worst "
+        f"scale-aware {summ['worst_rel_err_scaled']:.3e}; oracle "
+        f"unconverged {summ['oracle_unconverged_k']}, its band ends against "
+        f"the dense complex128 solve "
+        f"{ {k: f'{e:.3e}' for k, e in dense.items()} } "
+        f"(<{CERT_PROD_DENSE_BAR:g}; {time.perf_counter() - t0:.2f} s); "
+        f"launches {counts} (expected {want})")
+    if summ["oracle_unconverged_k"] or not all(
+            e < CERT_PROD_DENSE_BAR for e in dense.values()):
+        raise RuntimeError(f"certify-prod: oracle unconverged at "
+                           f"{summ['oracle_unconverged_k']} or off the "
+                           f"dense solve {dense}")
+    if not np.all(np.isfinite(got["f32"].eigenvalues)):
+        raise RuntimeError("certify-prod: f32 bands not finite")
+    if counts != want or min(counts["nd M"], counts["nd AM"], counts["h1 A"],
+                             counts["jacobi"]) <= 0:
+        raise RuntimeError(f"certify-prod: kernel launches {counts} != the "
+                           f"sweep's calls {want}")
+    return counts
+
+
+def phase_scale(dev):
+    """``[scale]``: ``scale_demo``'s models on one card. Part single: the
+    footprint fit on the headline's spectral warm solve (FCC p=4, nev 10
+    in 16, the nudged Γ and X) at ``SCALE_NS``, each solve's peak device
+    memory over what was allocated before it; the fitted count of (B, D,
+    D) complex64 arrays within 10% of each peak, the bands within the
+    analytic bar, the Jacobi launches equal to the solves' eigensolves,
+    and the largest n the fit puts under 90% of the card. Part dd's
+    one-card model: its 2-iteration LOBPCG and field apply at n = 8, 12,
+    16, 24 (the nd kernel's "A" and "M" halves at (5, 6)), the fitted
+    bytes a dof within 10% of each peak, finite norms and eigenvalues,
+    nd launched, and the n it picks for four ranks. Counts set to 0
+    before and read after each part. Returns (the single part's Jacobi
+    launches, the dd model's launches, that n)."""
+    import numpy as np
+    import torch
+    from bravais_tpu_torch.cli import scale_demo as sd
+    from bravais_tpu_torch.eigen import jacobi_cuda
+
+    cap = torch.cuda.get_device_properties(dev).total_memory
+    log_path("scale")
+    torch.cuda.synchronize()
+    _zero_counts()
+    fit = sd.single_fit(SCALE_NS, ORDER, BLOCK, dev)
+    launches = jacobi_cuda.launches
+    log_path(None)
+    c = fit["count"]
+    want = sum(sum(r["iterations"]) + r["k"] for r in fit["runs"])
+    big = sd.largest_n(c, ORDER, cap)
+    for r, d in zip(fit["runs"], fit["deviation"]):
+        log("scale", f"FCC n={r['n']} p={ORDER} ({r['ndofs']} dofs), "
+            f"nudged G and X: peak {r['peak'] / 2**20:.1f} MiB, model "
+            f"{c * sd.array_bytes(r['n'], ORDER) / 2**20:.1f} MiB "
+            f"({d:+.4f}), wall {r['wall_s']:.3f} s, iterations "
+            f"{r['iterations']}, max eig err {r['err']:.3e}")
+    log("scale", f"fitted {c:.4f} (B, D, D) complex64 arrays at the peak, "
+        f"within {max(abs(d) for d in fit['deviation']):.4f} of each (<"
+        f"{sd.FIT_BAR:g}); card {cap / 2**30:.2f} GiB: the largest n under "
+        f"{sd.SINGLE_SHARE:g} of it is {big} (model "
+        f"{c * sd.array_bytes(big, ORDER) / 2**30:.2f} GiB); Jacobi "
+        f"launches {launches} (expected {want})")
+    if not (max(abs(d) for d in fit["deviation"]) < sd.FIT_BAR
+            and all(r["err"] < ERR_BAR and not r["fallbacks"]
+                    for r in fit["runs"])):
+        raise RuntimeError(f"scale: fit {fit['deviation']} or errors "
+                           f"{[r['err'] for r in fit['runs']]}")
+    if not launches == want > 0:
+        raise RuntimeError(f"scale: Jacobi launches {launches} != {want}")
+
+    log_path("scale dd")
+    torch.cuda.synchronize()
+    _zero_counts()
+    runs = [sd.dd_step(n, ORDER, BLOCK, sd.NEV, torch.complex64, dev)
+            for n in sd.DD_NS]
+    dd_counts = {k: v for k, v in _counts().items() if v}
+    log_path(None)
+    a, b = sd.fit_linear([r["ndofs"] for r in runs],
+                         [r["peak"] for r in runs])
+    dev_fit = [(a * r["ndofs"] + b) / r["peak"] - 1.0 for r in runs]
+    n_dd = sd.dd_choose(a, b, cap, ORDER, 4)
+    one, rank = sd.dd_predict(a, b, n_dd, ORDER, 4)
+    for r, d in zip(runs, dev_fit):
+        log("scale", f"dd model FCC n={r['n']} ({r['ndofs']} dofs): LOBPCG "
+            f"peak {r['peak'] / 2**20:.1f} MiB ({d:+.4f}), {r['lobpcg_s']:.3f}"
+            f" s, apply norm {r['norm']:.6e}, nd launches {r['nd']}")
+    log("scale", f"dd model: {a:.1f} bytes a dof + {b / 2**30:.4f} GiB, "
+        f"within {max(map(abs, dev_fit)):.4f} of each (<{sd.FIT_BAR:g}); "
+        f"four ranks: n={n_dd} ({3 * n_dd ** 3 * ORDER ** 3} dofs), one "
+        f"card {one / 2**30:.2f} GiB predicted, a rank {rank / 2**30:.2f} "
+        f"GiB; launches {dd_counts}")
+    if not (max(map(abs, dev_fit)) < sd.FIT_BAR and all(
+            r["finite"] and np.all(np.isfinite(r["eigenvalues"]))
+            for r in runs) and dd_counts.get("nd A", 0) > 0
+            and dd_counts.get("nd M", 0) > 0):
+        raise RuntimeError(f"scale: dd model {dev_fit} or launches "
+                           f"{dd_counts}")
+    return launches, dd_counts, n_dd
 
 
 # -- [shard]: the sharded paths over torch.distributed ---------------------
@@ -2430,6 +2630,160 @@ def phase_shard(dev):
     return groups
 
 
+# -- the four-card mode (``--four``) -----------------------------------------
+
+#: The CLI problem of ``--four``'s ``--shard`` runs (the headline's).
+FOUR_CLI_ARGS = ("--lattice", "FCC", "--problem", "maxwell", "--engine",
+                 "spectral", "--n", str(N_ELEM), "--p", str(ORDER), "--nk",
+                 str(NK), "--nev", str(NEV))
+
+
+def torchrun(nproc, args, timeout=900):
+    """``python -m torch.distributed.run --standalone --nproc-per-node
+    nproc ARGS`` from the repository (NCCL ranks, one card each); echoes
+    its output and raises unless it exits 0. Returns (wall s, stdout)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(nproc), *args]
+    log("four", " ".join(cmd[1:]))
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=REPO, text=True, capture_output=True,
+                       timeout=timeout)
+    wall = time.perf_counter() - t0
+    for line in r.stdout.splitlines():
+        print(f"  {line}", flush=True)
+    if r.returncode:
+        raise RuntimeError(f"{' '.join(args)} exited {r.returncode}: "
+                           f"{r.stderr[-4000:]}")
+    return wall, r.stdout
+
+
+def four_shard(nproc):
+    """Phase 13's ``[shard]`` jobs on four ranks: ``--shard-rank`` under
+    torchrun, every job of ``shard_sweeps`` and ``shard_dd`` on NCCL
+    ranks, one card each; every rank must pass."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        wall, _ = torchrun(nproc, [str(REPO / "chip_smoke.py"),
+                                   "--shard-rank", tmp, "--backend", "nccl",
+                                   "--jobs", "all"])
+        recs = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                for r in range(nproc)]
+    if not all(rec.get("ok") for rec in recs):
+        raise RuntimeError("four: a [shard] rank failed")
+    log("four", f"[shard] jobs: {nproc} NCCL ranks passed in {wall:.1f} s")
+
+
+def four_cli(nproc):
+    """The CLI's ``--shard`` in both modes (``--mode warm``:
+    ``run_warm_sharded``; ``batched``: ``run`` with the mesh) under
+    torchrun, against the same problem on one card: every band table
+    finite, within ``ERR_BAR`` of the analytic bands at the k the CLI
+    solved, and within 1e-6 relative of the one-card table."""
+    import tempfile
+
+    import numpy as np
+    from bravais_tpu_torch.lattices import kpath, make_lattice
+
+    lat = make_lattice(LATTICE)
+    kc = nudged(lat, kpath(lat, npts=NK).k_cart).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        one = Path(tmp, "one")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "bravais_tpu_torch",
+                            *FOUR_CLI_ARGS, "--out", str(one)], cwd=REPO,
+                           text=True, capture_output=True, timeout=900)
+        if r.returncode:
+            raise RuntimeError(f"four: one-card CLI exited {r.returncode}: "
+                               f"{r.stderr[-3000:]}")
+        walls = {"one card": time.perf_counter() - t0}
+        base = np.load(one / "bands.npz")["eigenvalues"]
+        for mode in ("warm", "batched"):
+            out = Path(tmp, mode)
+            walls[mode], _ = torchrun(nproc, [
+                "-m", "--", "bravais_tpu_torch", *FOUR_CLI_ARGS, "--shard",
+                "--mode", mode, "--out", str(out)])
+            lam = np.load(out / "bands.npz")["eigenvalues"]
+            err = max(eig_error(lam[i], lat, k, mmax=3, mult=2)
+                      for i, k in enumerate(kc.astype(np.float64)))
+            diff = float(np.max(np.abs(lam - base) / np.abs(base)))
+            log("four", f"CLI --shard --mode {mode}, {nproc} ranks: "
+                f"{walls[mode]:.2f} s (one card {walls['one card']:.2f} s; "
+                f"process start, kernel load and stencils included), max "
+                f"eig err {err:.3e} (<{ERR_BAR:g}), max rel diff from one "
+                f"card {diff:.3e} (<1e-6)")
+            if not (lam.shape == base.shape and np.all(np.isfinite(lam))
+                    and err < ERR_BAR and diff < 1e-6):
+                raise RuntimeError(f"four: CLI --shard --mode {mode}")
+
+
+def dd_slab_times(dev, n, nproc, launches=None):
+    """The nd kernel at part dd's slab shape (16 rows of n³/``nproc``
+    elements of FCC n, (l, q) = (5, 6)) held against the plain version
+    on a random block (``hold_apply``), and its "A" and "M" halves (the
+    LOBPCG's) timed as ``kernel_times`` times a shape, with ``launches``
+    (by half) on the dd run, where there was one: {shape: record}."""
+    import torch
+    from bravais_tpu_torch.cli import scale_demo as sd
+    from bravais_tpu_torch.operators import nd_apply
+    from bravais_tpu_torch.utils.timing import cuda_ms
+
+    _, op = sd.fcc_operator(n, ORDER, torch.complex64, dev)
+    c = op.nd_consts().elements(0, n // nproc * n * n)
+    del op
+    gen = torch.Generator(device=dev).manual_seed(17)
+    ue = torch.randn((DD_ROWS * c.nelem, c.ndof), generator=gen,
+                     dtype=torch.complex64, device=dev)
+    err = hold_apply(f"nd dd slab n={n} rows={DD_ROWS} x {c.nelem} "
+                     f"elements (l, q) = ({c.l}, {c.q})",
+                     lambda u, w: nd_apply.nedelec_apply(u, c, w),
+                     lambda u, w: nd_apply.nedelec_apply_plain(u, c, w), ue)
+    times = {}
+    for want in ("A", "M"):
+        b_ms, b_by = bound(*nd_apply.work(ue.shape[0], c, want))
+        times[f"dd slab n={n}: rows {DD_ROWS} x {c.nelem} elements "
+              f"{want}"] = {
+            "device_ms": device_ms(
+                lambda: nd_apply.nedelec_apply(ue, c, want), reps=5),
+            "ms": cuda_ms(lambda: nd_apply.nedelec_apply(ue, c, want)),
+            "plain_ms": cuda_ms(
+                lambda: nd_apply.nedelec_apply_plain(ue, c, want), reps=2,
+                warmup=1),
+            "library_ms": None, "library_device_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+            **({"launches": launches[want]} if launches else {})}
+    log_times({"nd": times})
+    return times
+
+
+def four_dd(dev, nproc):
+    """``scale_demo --part dd`` under torchrun, then ``dd_slab_times`` at
+    its n with rank 0's launches. Returns the nd records."""
+    wall, out = torchrun(nproc, ["-m", "--", "bravais_tpu_torch.cli."
+                                 "scale_demo", "--part", "dd"])
+    recs = [json.loads(line) for line in out.splitlines()
+            if line.startswith("{")]
+    n = next(r["n"] for r in recs if "n" in r)
+    peak = next(r for r in recs if r["metric"].startswith("dof-sharded over"))
+    launches = peak["nd_launches"][0]
+    log("four", f"scale_demo --part dd: n={n} over {nproc} ranks in "
+        f"{wall:.1f} s; rank 0's nd launches {launches}")
+    return dd_slab_times(dev, n, nproc, launches)
+
+
+def phase_four(dev):
+    """``--four``: the records that exist only across cards, on every
+    card of the machine (at least 4) under ``torch.distributed.run``:
+    phase 13's ``[shard]`` jobs, the CLI's ``--shard`` in both modes, and
+    ``scale_demo --part dd`` with the nd kernel at its slab's shape."""
+    import torch
+    nproc = torch.cuda.device_count()
+    if nproc < 4:
+        raise RuntimeError(f"--four needs 4 cards, found {nproc}")
+    four_shard(nproc)
+    four_cli(nproc)
+    return four_dd(dev, nproc)
+
+
 def phase_cli(dev):
     """Config 4's BCC half through the CLI, in a subprocess as a user
     starts it (``CLI_ARGS``), then again with ``--resume``. Gates: both
@@ -2503,6 +2857,10 @@ def main():
                     "from the launcher's environment; results to OUT)")
     ap.add_argument("--backend", choices=("gloo", "nccl"), default="nccl")
     ap.add_argument("--jobs", choices=("all", "nccl"), default="all")
+    ap.add_argument("--four", action="store_true",
+                    help="the four-card records instead of the one-card "
+                    "smoke test: [shard]'s jobs, the CLI's --shard and "
+                    "scale_demo --part dd under torch.distributed.run")
     args = ap.parse_args()
 
     import numpy as np
@@ -2530,6 +2888,17 @@ def main():
     log("build", ", ".join(lib.name for lib in libs.values())
         + f" in {time.perf_counter() - t0:.2f} s (parallel nvcc)")
     ptxas = ptxas_report(libs)
+    if args.four:
+        times = phase_four(dev)
+        print(json.dumps({"kernels": [{
+            "name": "nedelec_apply", "route": "cuda",
+            "source": "bravais_tpu_torch/csrc/nd_apply.cu",
+            "replaces": "bravais_tpu/operators/pallas/nd_apply.py:134",
+            "shapes": times}]}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     install_launch_log()
 
     jac_err = phase_kernels(dev)
@@ -2580,6 +2949,8 @@ def main():
     batched = phase_batched(dev, head, setup3, rods, setup4)
     cert = phase_certify(dev)
     log_path(None)
+    cert_prod = phase_certify_prod(dev)
+    scale, scale_dd, n_dd = phase_scale(dev)
     shard = phase_shard(dev)
     launched_err = phase_launched(dev)
     # The profiler's phases come last, so that the launch-bound sweeps
@@ -2591,6 +2962,8 @@ def main():
     times = kernel_times(dev, setup3[2], rods, op4=setup4[2], op5=op5,
                          batched=True, logged=new_runs)
     log_times(times)
+    torch.cuda.empty_cache()
+    times["nd"].update(dd_slab_times(dev, n_dd, 4))
     jac, nd_rec, h1_rec = (
         {"name": name, "route": "cuda",
          "source": f"bravais_tpu_torch/csrc/{src}.cu",
@@ -2620,7 +2993,9 @@ def main():
         "config5_spectral": c5["spectral"]["jacobi"],
         "config5_field": c5["field"]["jacobi"],
         **{f"batched_{path}": got["jacobi"] for path, got in batched.items()},
-        **{f"certify_eps{e:g}": got["jacobi"] for e, got in cert.items()}}
+        **{f"certify_eps{e:g}": got["jacobi"] for e, got in cert.items()},
+        "certify_prod": cert_prod["jacobi"], "scale": scale,
+        "scale_dd_model": scale_dd.get("jacobi", 0)}
     # [shard]: each rank's launches on each sharded path, and the shapes
     # its launch log held against the plain versions.
     shard_runs = [(f"shard_{backend}_r{rec['rank']}_{tag.replace(' ', '_')}",
@@ -2648,6 +3023,8 @@ def main():
                           ("batched_fcc_field", batched["fcc_field"]),
                           *((f"certify_eps{e:g}", got)
                             for e, got in cert.items()),
+                          ("certify_prod", cert_prod),
+                          ("scale_dd_model", scale_dd),
                           *((key, got) for key, got in shard_runs
                             if any(got.get(f"nd {w}") for w in
                                    ("M", "AM", "A"))))}
@@ -2666,13 +3043,14 @@ def main():
            for path in ("config3", "config3_chunk4", "config2")},
         **{f"certify_eps{e:g}": {w: got[f"h1 {w}"] for w in ("A", "AM", "M")}
            for e, got in cert.items()},
+        "certify_prod": {w: cert_prod[f"h1 {w}"] for w in ("A", "AM", "M")},
         **{key: {w: got.get(f"h1 {w}", 0) for w in ("A", "AM", "M")}
            for key, got in shard_runs
            if any(got.get(f"h1 {w}") for w in ("A", "AM", "M"))}}
     h1_rec["launches"] = diel["h1"] + sum(
         v for path in (rods2d, te, c5["field"], batched["config3"],
                        batched["config3_chunk4"], batched["config2"],
-                       *cert.values())
+                       *cert.values(), cert_prod)
         for key, v in path.items() if key.startswith("h1")) + sum(
         v for _, got in shard_runs for key, v in got.items()
         if key.startswith("h1"))

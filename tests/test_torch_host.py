@@ -106,6 +106,8 @@ def test_import_keeps_jax_out():
             "bravais_tpu_torch.bands.sweep, bravais_tpu_torch.bands.io, "
             "bravais_tpu_torch.cli.config, bravais_tpu_torch.cli.bands_app, "
             "bravais_tpu_torch.cli.config5_all14, "
+            "bravais_tpu_torch.cli.certify_dielectric, "
+            "bravais_tpu_torch.cli.scale_demo, "
             "bravais_tpu_torch.operators.coefficients, "
             "bravais_tpu_torch.operators.curlcurl, "
             "bravais_tpu_torch.operators.qplaplace, "

@@ -38,7 +38,7 @@ from bravais_tpu.operators.curlcurl import BlochCurlCurl as CurlRef
 from bravais_tpu.operators.helmholtz import BlochHelmholtz as HelmRef
 from bravais_tpu.spaces.h1 import H1Space as H1Ref
 from bravais_tpu.spaces.nedelec import NedelecSpace as NedRef
-from bravais_tpu_torch.cli import bands_app
+from bravais_tpu_torch.cli import bands_app, scale_demo
 from bravais_tpu_torch.lattices import kpath, make_lattice
 from bravais_tpu_torch.meshing.grid import PeriodicGrid
 from bravais_tpu_torch.operators.helmholtz import BlochHelmholtz
@@ -160,6 +160,12 @@ def _ref_decomposed():
     uc = jnp.asarray(_randc(np.random.default_rng(1), opc.space.field_shape))
     out["nd_A"] = np.asarray(jax.jit(opc.apply_A)(
         uc, jnp.asarray(latf.k_cart((0.5, 0.25, 0.75)))))
+    ks = latf.k_cart(scale_demo.DD_KFRAC)
+    for dt, kdt in ((jnp.complex64, np.float32), (jnp.complex128, np.float64)):
+        ops = CurlRef(NedRef.make(GridRef.make(latf, 4), 2), dtype=dt)
+        us = jnp.asarray(scale_demo.dd_field(ops.space)[0], dt)
+        out[f"scale_dd_{jnp.dtype(dt).name}"] = float(np.linalg.norm(
+            np.asarray(jax.jit(ops.apply_A)(us, jnp.asarray(ks, kdt)))))
     latt = make_lattice_ref("TRI", **TRI)
     opt = HelmRef(H1Ref.make(GridRef.make(latt, 4), 4), dtype=jnp.complex128)
     ur = np.random.default_rng(0).standard_normal((2,) + opt.space.dof_shape)
@@ -304,13 +310,14 @@ def test_sharded_curlcurl_apply_matches(ranks, ref):
     """tests/test_domain_decomposition.py::
     test_sharded_curlcurl_apply_matches (FCC n=4 p=2: one element a
     slab, the halo of the two closed components with the wrap phase),
-    1e-12 against the unsharded apply. The port's field apply takes the
-    nd kernel's float32 tables and coefficient planes (``NdConsts``) in
-    every dtype, so against the reference's float64 apply it agrees to
-    float32 rounding."""
+    1e-12 against the unsharded apply and against the reference's
+    complex128 apply: a complex128 operator's Nédélec constants are
+    float64 (``NdConsts(rdtype=)``). The norm check at 1e-6 is kept."""
     got = _slabs(ranks, "nd_A", "nd_dofs", 1)
     np.testing.assert_allclose(got, ranks.unsharded("nd_A"), rtol=1e-12,
                                atol=1e-12)
+    np.testing.assert_allclose(got, ref["nd_A"], rtol=1e-12,
+                               atol=1e-12 * np.abs(ref["nd_A"]).max())
     assert (np.linalg.norm(got - ref["nd_A"])
             < 1e-6 * np.linalg.norm(ref["nd_A"]))
     for i, want in enumerate(ranks.unsharded("nd_AM")):
@@ -328,6 +335,32 @@ def test_sharded_eigensolve_matches(ranks, ref):
         np.testing.assert_array_equal(g["eigenvalues"], got[0]["eigenvalues"])
     for want in (ranks.unsharded("lobpcg")["eigenvalues"], ref["lobpcg"]):
         np.testing.assert_allclose(got[0]["eigenvalues"], want, rtol=1e-9)
+
+
+def test_scale_demo_dd_step_over_four_ranks(ranks, ref):
+    """``scale_demo --part dd``'s step (FCC n=4 p=2 at the reference's
+    k, the seed-0 field, a 2-iteration LOBPCG with its Grams reduced)
+    over the 4 ranks: the apply's norm equals the reference's
+    ``BlochCurlCurl.apply_A`` norm (1e-6 in complex64, 1e-12 in
+    complex128), and the eigenvalues equal the unsharded port's (1e-9 in
+    complex128)."""
+    got = [g["decomposed"]["scale_dd"] for g in ranks.results()]
+    un = ranks.unsharded("scale_dd")
+    assert [g["complex128"]["slab"] for g in got] == [[0, 2], [2, 4],
+                                                      [4, 6], [6, 8]]
+    for dt, bar in (("complex64", 1e-6), ("complex128", 1e-12)):
+        want = ref[f"scale_dd_{dt}"]
+        for g in got:
+            assert g[dt]["finite"]
+            assert abs(g[dt]["norm"] - want) <= bar * want, (dt, g[dt])
+            np.testing.assert_array_equal(g[dt]["eigenvalues"],
+                                          got[0][dt]["eigenvalues"])
+    np.testing.assert_allclose(got[0]["complex128"]["eigenvalues"],
+                               un["complex128"]["eigenvalues"],
+                               rtol=1e-9)
+    np.testing.assert_allclose(got[0]["complex64"]["eigenvalues"],
+                               un["complex64"]["eigenvalues"],
+                               rtol=1e-5)
 
 
 def test_config5_dd_sharded_apply_p4(ranks, ref):

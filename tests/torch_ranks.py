@@ -16,7 +16,8 @@ numpy and scipy only).
 The problems are those of the reference's sharded tests
 (``tests/test_sweep.py``, ``tests/test_checkpoint.py``,
 ``tests/test_domain_decomposition.py``, ``tests/test_config5.py``), with
-their seeds.
+their seeds, and the step of ``benchmarks/scale_demo.py --part dd`` at
+FCC n=4 p=2.
 """
 
 import os
@@ -30,6 +31,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 from bravais_tpu_torch.bands import BandSweep, BandWriter  # noqa: E402
+from bravais_tpu_torch.cli.scale_demo import dd_step  # noqa: E402
 from bravais_tpu_torch.eigen.lobpcg import lobpcg  # noqa: E402
 from bravais_tpu_torch.eigen.precond import jacobi  # noqa: E402
 from bravais_tpu_torch.lattices import kpath, make_lattice  # noqa: E402
@@ -178,7 +180,19 @@ def decomposed(mesh):
         got["uneven"] = None
     except ValueError as e:
         got["uneven"] = str(e)
+
+    # scale_demo --part dd's step at FCC n=4 p=2 (one element a slab).
+    got["scale_dd"] = {name: scale_dd(getattr(torch, name), mesh)
+                       for name in ("complex64", "complex128")}
     return got
+
+
+def scale_dd(dtype, mesh=None):
+    """``scale_demo.dd_step`` at FCC n=4 p=2, m=16, nev 10: the apply's
+    norm and the 2-iteration eigenvalues."""
+    r = dd_step(4, 2, 16, 10, dtype, "cpu", mesh)
+    return {"norm": r["norm"], "eigenvalues": r["eigenvalues"],
+            "slab": r["slab"], "finite": r["finite"]}
 
 
 def sp_shape(op):
@@ -224,6 +238,8 @@ def unsharded(rank):
         ur = np.random.default_rng(0).standard_normal((2,) + sp_shape(opt))
         got["tri_A"] = opt.apply_A(torch.as_tensor(ur[0] + 1j * ur[1])[None],
                                    latt.k_cart([0.21, 0.13, 0.17]))[0].numpy()
+        got["scale_dd"] = {name: scale_dd(getattr(torch, name))
+                           for name in ("complex64", "complex128")}
     return got
 
 
