@@ -31,9 +31,11 @@ torchrun's own parser from reading ``--n`` as an abbreviation of its
 options); without one it is a group of one. Only rank 0 writes the run directory, logs and saves
 modes; a ``--resume`` shards only the k still to do.
 
-What the port lacks exits with an error that names it: the ``gmg``
-Maxwell engine (and ``auto`` on a grid with n < 3), which needs the
-reference's QPGMG; ``--mode warm-chain``.
+The Maxwell ``gmg`` engine (``--engine gmg``, and ``auto`` on a grid
+with n < 3, where the fast-diagonal stencils do not exist) is the σ-shift
+solve with the quasi-periodic multigrid projector
+(``BlochCurlCurl.make_solve_fn(deflation="gmg")``). What the port lacks
+exits with an error that names it: ``--mode warm-chain``.
 """
 
 from __future__ import annotations
@@ -132,29 +134,35 @@ def build_problem(cfg, device):
     raise Unsupported(f"unknown problem {cfg.problem!r}")
 
 
-def make_solve_fn(cfg, op):
-    """The engine rule: the solve hook per problem family and engine.
-
-    Scalar problems: the spectral engine where it is exact (element-
-    invariant coefficients, n ≥ 3 per axis) unless another engine is
-    asked for, else None (the built-in LOBPCG with GMG or Jacobi).
-    Maxwell: "auto" is "spectral" for invariant ε, "field" for varying ε,
-    "gmg" on a grid with n < 3; "spectral" → ``make_spectral_solve_fn``;
-    "field" → ``make_solve_fn`` with the exact "project" deflation for
-    invariant ε and "project-cheby" for varying ε; "gmg" raises
-    ``Unsupported`` (it needs the reference's QPGMG)."""
+def engine_name(cfg, op) -> str:
+    """The engine the rule picks. Scalar problems: "spectral" where it is
+    exact (element-invariant coefficients, n ≥ 3 per axis) unless another
+    engine is asked for, else "builtin" (the sweep's own LOBPCG with GMG
+    or Jacobi). Maxwell: ``cfg.engine``, where "auto" is "spectral" for
+    invariant ε, "field" for varying ε and "gmg" on a grid with n < 3
+    (no fast-diagonal stencils there)."""
     fd_ok = min(op.space.grid.shape) >= 3
     invariant = op._coef_elem_invariant()
     if cfg.problem != "maxwell":
-        if cfg.engine in ("auto", "spectral") and fd_ok and invariant:
-            return op.make_solve_fn()
-        return None
-    engine = cfg.engine
-    if engine == "auto":
-        engine = ("gmg" if not fd_ok else
-                  "spectral" if invariant else "field")
+        return ("spectral" if cfg.engine in ("auto", "spectral") and fd_ok
+                and invariant else "builtin")
+    if cfg.engine == "auto":
+        return "gmg" if not fd_ok else "spectral" if invariant else "field"
+    return cfg.engine
+
+
+def make_solve_fn(cfg, op):
+    """The solve hook of the engine ``engine_name`` picks: "builtin" →
+    None; scalar "spectral" → ``make_solve_fn``; Maxwell "spectral" →
+    ``make_spectral_solve_fn``; "field" → ``make_solve_fn`` with the exact
+    "project" deflation for invariant ε and "project-cheby" for varying
+    ε; "gmg" → ``make_solve_fn(deflation="gmg")``, the σ-shift solve."""
+    engine = engine_name(cfg, op)
+    invariant = op._coef_elem_invariant()
+    if cfg.problem != "maxwell":
+        return op.make_solve_fn() if engine == "spectral" else None
     if engine == "spectral":
-        if not (fd_ok and invariant):
+        if not (min(op.space.grid.shape) >= 3 and invariant):
             raise Unsupported("--engine spectral needs element-invariant "
                               "coefficients and n >= 3 per axis; use "
                               "--engine field")
@@ -163,10 +171,7 @@ def make_solve_fn(cfg, op):
         return op.make_solve_fn(
             deflation="project" if invariant else "project-cheby")
     if engine == "gmg":
-        raise Unsupported(
-            "the gmg Maxwell engine (also --engine auto on a grid with "
-            "n < 3) needs QPGMG, which the port does not have; use n >= 3 "
-            "with --engine field or spectral")
+        return op.make_solve_fn(deflation="gmg")
     raise Unsupported(f"unknown --engine {engine!r}")
 
 
@@ -210,7 +215,9 @@ def _run(cfg, device, mesh, log):
         log(f"# sharded over {mesh.size} rank{'s' * (mesh.size > 1)} "
             f"({mesh.backend})")
 
-    sweep = BandSweep(op, make_solve_fn(cfg, op), nev=cfg.nev,
+    solve_fn = make_solve_fn(cfg, op)
+    log(f"# engine {engine_name(cfg, op)}")
+    sweep = BandSweep(op, solve_fn, nev=cfg.nev,
                       block=cfg.block, tol=cfg.tol, maxiter=cfg.maxiter,
                       device_tol=cfg.device_tol, precond=cfg.precond,
                       seed=cfg.seed, keep_vectors=cfg.save_modes)

@@ -28,6 +28,10 @@ What is here:
   the exact fast-diagonal and the preconditioned-Chebyshev gradient
   projectors and ``make_solve_fn`` (the reference's ``deflation`` values
   "project" and "project-cheby", ``precond="fastdiag"``);
+* the σ-shift field engine, ``make_solve_fn(deflation="gmg")``: LOBPCG on
+  Ã = A + σ·M P with the gradient projector P through the quasi-periodic
+  multigrid ``qp_gmg()`` (``gradient_component_gmg``, ``sigma_shift``),
+  the CLI's ``gmg`` engine;
 * the operator diagonals ``diag_A``/``diag_M`` (the built-in sweep's
   Jacobi preconditioner);
 * ``CurlCurlSlab``: one rank's slab of the field applies split along the
@@ -35,8 +39,8 @@ What is here:
 * the f64 gradient component ``gradient_component_np`` (exact for
   element-invariant ε, twin-preconditioned CG on the true L otherwise).
 
-Not ported: the reference's other deflations and preconditioners
-(``fd_precond_cg`` among them).
+Not ported: the reference's other deflations ("cg", "fastdiag",
+"project-cg") and preconditioners (``fd_precond_cg`` among them).
 """
 
 from __future__ import annotations
@@ -627,6 +631,38 @@ class BlochCurlCurl:
         :meth:`qp_L` (the h1 kernel at k = 0, phases in the gather)."""
         return self.qp_L().apply_A(phi, k, ph=ph)
 
+    def qp_gmg(self):
+        """Multigrid on the quasi-periodic ε-Laplacian (``eigen.gmg.QPGMG``
+        on :attr:`h1`, α = ε): exactly L = Gᴴ M_ε G at the fine level, so a
+        few Richardson + V-cycle steps solve the gradient projection.
+        Built once, on first use."""
+        if not hasattr(self, "_qpgmg"):
+            from bravais_tpu_torch.eigen.gmg import QPGMG
+            self._qpgmg = QPGMG(self.h1, alpha=self._eps_fn,
+                                dtype=self.dtype, device=self.device)
+        return self._qpgmg
+
+    def gradient_component_gmg(self, u: torch.Tensor, k=None, cycles=3, *,
+                               ph=None, lsolve=None) -> torch.Tensor:
+        """P u ≈ G L⁻¹ Gᴴ M u with L⁻¹ by ``cycles`` QPGMG cycles. ``u``:
+        block (rows, 3, N₁, N₂, N₃), or (nk, rows, 3, N₁, N₂, N₃) with a
+        k table; ``lsolve``: ``qp_gmg().solver(k)`` (formed here if not
+        given)."""
+        if ph is None:
+            ph = self.phases(k)
+        if lsolve is None:
+            lsolve = self.qp_gmg().solver(k)
+        rhs = self.apply_GkH(self.apply_M(u, ph=ph), ph=ph)
+        return self.apply_Gk(lsolve(rhs, cycles), ph=ph)
+
+    @property
+    def sigma_shift(self) -> float:
+        """σ of the σ-shift formulation, mean(diag A) / mean(diag M): a
+        λmax-scale estimate that puts the gradient subspace above the
+        physical bands."""
+        dA, dM = self._diagonals()
+        return float(np.mean(dA) / np.mean(dM))
+
     def cheby_bounds(self) -> tuple:
         """Spectrum bounds of the mean-twin-preconditioned deflation
         Laplacian: L = GᴴM_εG and L̃ = ε̄·GᴴM₁G weight the same gradient
@@ -692,11 +728,13 @@ class BlochCurlCurl:
 
     def make_solve_fn(self, deflation: str = "project-cheby",
                       cheby_target: float | None = None) -> Callable:
-        """The field-engine solve (the reference's ``make_solve_fn`` with
-        ``precond="fastdiag"``): LOBPCG on (A(k), M) with the per-iteration
-        X/P projection of a gradient projector P and the (A + sM)⁻¹
-        fast-diagonal preconditioner followed by that projection. A and M
-        come together from the fused Nédélec kernel (the ``AM`` hook).
+        """The field-engine solve. With "project" or "project-cheby" (the
+        reference's ``make_solve_fn`` with ``precond="fastdiag"``): LOBPCG
+        on (A(k), M) with the per-iteration X/P projection of a gradient
+        projector P and the (A + sM)⁻¹ fast-diagonal preconditioner
+        followed by that projection. A and M come together from the fused
+        Nédélec kernel (the ``AM`` hook). With "gmg" the σ-shift solve
+        (:meth:`_sigma_shift_solve`).
 
         ``deflation``:
 
@@ -708,10 +746,14 @@ class BlochCurlCurl:
           the L blocks per k). With varying ε that solve is only the
           mean-ε twin, whose error I − L̃⁻¹L has eigenvalues up to the
           contrast − 1, so per-iteration use would amplify the kernel; it
-          raises ``ValueError`` instead.
+          raises ``ValueError`` instead;
+        * "gmg" (any ε; the reference's ``deflation_gmg=True``): LOBPCG on
+          Ã = A + σ·M P (σ = :attr:`sigma_shift`), P by three QPGMG cycles
+          (:meth:`gradient_component_gmg`), Jacobi on diag A, no per-
+          iteration projection; ``cheby_target`` is not read.
 
-        The reference's other deflations and preconditioners are not
-        ported.
+        The reference's other deflations ("cg", "fastdiag", "project-cg")
+        and preconditioners are not ported.
 
         Returns ``solve(X0, k, nev, tol, maxiter)`` → (LobpcgResult with
         eigenvector block (m, 3, N₁, N₂, N₃), None). With a k table
@@ -727,9 +769,11 @@ class BlochCurlCurl:
                                                     engine_scale_floor,
                                                     lobpcg)
 
+        if deflation == "gmg":
+            return self._sigma_shift_solve()
         if deflation not in ("project", "project-cheby"):
-            raise ValueError(f"deflation must be 'project' or "
-                             f"'project-cheby' (the ported values), got "
+            raise ValueError(f"deflation must be 'project', 'project-cheby' "
+                             f"or 'gmg' (the ported values), got "
                              f"{deflation!r}")
         if deflation == "project" and not self._coef_elem_invariant():
             raise ValueError(
@@ -774,6 +818,56 @@ class BlochCurlCurl:
                           precond=pcond, scale_floor=sfloor,
                           AM=lambda x: self.apply_AM(x, ph=ph),
                           kernel_project=proj, rr_tol=PROD_RR_TOL,
+                          batched=batched), None
+
+        solve.batched = True
+        return solve
+
+    def _sigma_shift_solve(self) -> Callable:
+        """The σ-shift solve (the reference's ``make_solve_fn(
+        deflation_gmg=True)``): LOBPCG on the pencil (Ã(k), M), Ã x =
+        A x + σ·M(P x), with A and M applied separately (no fused hook), P
+        the QPGMG gradient projector, σ = :attr:`sigma_shift`. Kernel
+        directions get eigenvalue σ, above the bands, and physical modes
+        (Gᴴ M u = 0) are left as they are, so leakage into the kernel
+        corrects itself instead of being projected out every iteration.
+        The start block is deflated once, X0 − P X0. The preconditioner is
+        Jacobi on diag A: what the reference's sweep resolves "auto" to for
+        a Maxwell operator (the port's sweep hands an engine no
+        preconditioner). The hierarchy is built here; each solve forms the
+        multigrid's state at its k once (``QPGMG.solver``).
+
+        Returns ``solve(X0, k, nev, tol, maxiter)`` as the other field
+        engines do; with a k table (nk, 3) one k-batched LOBPCG
+        (``solve.batched``)."""
+        from bravais_tpu_torch.eigen.lobpcg import (PROD_RR_TOL,
+                                                    engine_scale_floor,
+                                                    lobpcg)
+        from bravais_tpu_torch.eigen.precond import jacobi
+
+        sfloor = engine_scale_floor(self.dtype)
+        gmg = self.qp_gmg()       # the hierarchy and its λmax bounds, host
+        sigma = self.sigma_shift
+
+        def solve(X0, k, nev, tol, maxiter):
+            ph = self.phases(k)
+            lsolve = gmg.solver(k)
+            batched = np.ndim(k) == 2
+
+            def proj(u):
+                return self.gradient_component_gmg(u, ph=ph, lsolve=lsolve)
+
+            def A_shifted(x):
+                return (self.apply_A(x, ph=ph)
+                        + sigma * self.apply_M(proj(x), ph=ph))
+
+            X0 = X0.to(self.dtype)
+            if batched and X0.ndim == 5:
+                X0 = X0.expand((len(k),) + tuple(X0.shape))
+            return lobpcg(A_shifted, lambda x: self.apply_M(x, ph=ph),
+                          X0 - proj(X0), nev, maxiter=maxiter, tol=tol,
+                          precond=jacobi(self.diag_A(k), batched=batched),
+                          scale_floor=sfloor, rr_tol=PROD_RR_TOL,
                           batched=batched), None
 
         solve.batched = True

@@ -22,7 +22,7 @@ h1 and Jacobi shapes too where the package has config 5: the kernel's call
 time between CUDA events and its device time from a ``torch.profiler``
 trace, for Jacobi ``torch.linalg.eigh``'s two times; the plain versions
 are not timed) and the records as one JSON line. With ``--sweep`` it runs
-config 3's warm sweep (``chip_smoke.phase_dielectric``: a cold pass, 3
+config 3's warm sweep (``chip_smoke.phase_dielectric``: a cold pass, 2
 timed passes, every oracle and launch gate) once before the timings and
 once after them, and prints both rates: whether the profiler sessions of
 the timings slow the later launches of their process. Run on two trees

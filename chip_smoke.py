@@ -52,7 +52,8 @@ median wall over its wall (below 1: the overlap gains):
    (17,496 Nédélec dofs), Γ–X–M–R nk=16 with Γ nudged, 10 bands in a
    block of 16, field engine (project-cheby deflation, fastdiag
    preconditioner), device stop 1e-4 then the f64 host Rayleigh–Ritz,
-   warm-started; one cold pass and 3 timed passes; bands 1 and 10 within
+   warm-started; one cold pass and 2 timed passes (cut from 3 for time);
+   bands 1 and 10 within
    1e-6 relative of the reference's f64 oracle record
    (``results/certify_r5/dielectric_n6p3.jsonl``) at k indices 1, 5, 10
    and 15, band 1 (the nudged-Γ acoustic band) within 2e-7 absolute and
@@ -83,8 +84,9 @@ median wall over its wall (below 1: the overlap gains):
    (``bench.py --engine field``), device stop 1e-5 (the sweep's default;
    bench.py's 1e-4 misses the bar, as in the reference; see
    ``FIELD_DEVICE_TOL``) then the f64
-   host Rayleigh–Ritz, warm-started; one cold pass and one timed pass (cut
-   from 3 for time); max eigenvalue error against the analytic bands
+   host Rayleigh–Ritz, warm-started; one pass, its rate the cold pass's
+   (cut from a cold and 3 timed passes for time; its wall is the host
+   refine's, 0.99 of it); max eigenvalue error against the analytic bands
    < 1e-6, and the nd and Jacobi launches of a pass (the L-twin eigh
    included) equal to the calls the path makes. ``[cli]`` its BCC half
    through the CLI, as a user starts it: ``python -m bravais_tpu_torch
@@ -199,6 +201,24 @@ median wall over its wall (below 1: the overlap gains):
    that n's slab shape (16 rows of n³/4 elements) held against the plain
    version and timed.
 
+16. ``[gmg]`` (after ``[batched]``): the σ-shift Maxwell engine
+   (``make_solve_fn(deflation="gmg")``: LOBPCG on A + σ·M P, P by three
+   QPGMG cycles, Jacobi) on config 3 at full width (``[diel]``'s
+   problem, k-points, device stop and maxiter), through ``run_warm`` and
+   the k-batched ``run``, each with the counts set to 0 just before and
+   read just after: ``[diel]``'s gates against the certify record at
+   every warm-started k (a cold-started k, where the float32 σ-shift
+   solve stalls as the reference's does, passes within them or with its
+   f64 residual certificate ≥ 1e-2: never off them and reported
+   converged) and the launches equal to the path's calls
+   (``expected_gmg_launches``);
+   then the CLI's n < 3 route in a child process (``GMG_CLI_ARGS``, no
+   ``--engine``): it logs ``# engine gmg``, exits 0, and its bands lie
+   within 1e-5 of the port's complex128 CPU run of the same
+   configuration. Its kernel shapes (h1 on every QPGMG level with a
+   16-k table and the coarse assembly, nd's "A" and "M" halves) are
+   held in ``[launched]`` and timed with the kernels.
+
 ``--four`` runs instead, on every card of a machine with at least four,
 what exists only across cards, each job under ``python -m
 torch.distributed.run --standalone --nproc-per-node <cards>`` (NCCL, one
@@ -241,7 +261,7 @@ ERR_BAR = 1e-6
 # Config 3 (the reference's ``bench.py --problem dielectric`` defaults,
 # with its near-Γ loose stop off).
 DIEL_N, DIEL_P, DIEL_EPS, DIEL_RADIUS = 6, 3, 13.0, 0.25
-DIEL_DEVICE_TOL, DIEL_PASSES = 1e-4, 3
+DIEL_DEVICE_TOL, DIEL_PASSES = 1e-4, 2
 DIEL_ORACLE = REPO / "results" / "certify_r5" / "dielectric_n6p3.jsonl"
 DIEL_REL_BAR, DIEL_GAMMA_ABS, DIEL_RES_BAR = 1e-6, 2e-7, 1e-2
 # Config 1 (``bench.py --problem scalar`` defaults) and config 2 TM
@@ -267,7 +287,7 @@ ELEM_BAR = 2e-5
 # sit 5.227e-07 off a 1e-5 sweep at k index 1, the port's 5.260e-07
 # (tests/test_torch_maxwell_field.py::
 # test_bench_field_stop_error_matches_reference).
-FIELD_DEVICE_TOL, FIELD_PASSES = 1e-5, 1
+FIELD_DEVICE_TOL, FIELD_PASSES = 1e-5, 0
 CLI_ARGS = ("--lattice", "BCC", "--problem", "maxwell", "--engine", "field",
             "--n", "8", "--p", "4", "--nk", "8", "--nev", "10")
 # Config 5 (``benchmarks/config5_all14.py``): all 14 lattices, n=6 p=4, the
@@ -298,6 +318,14 @@ CERT_PROD_ARGS = ("--n", "4", "--p", "2", "--nk", "6", "--k-indices",
 CERT_PROD_DENSE_BAR = 1e-9
 # ``[scale]``: ``scale_demo --part single``'s peaks at these n.
 SCALE_NS = (8, 12)
+# ``[gmg]``: the CLI's n < 3 Maxwell route (``auto`` picks the gmg
+# engine), against the port's own complex128 CPU run of the same
+# configuration; the bar is the f32 LOBPCG's tol 1e-6, no more. FCC's
+# default path has 12 symmetry points, more than nk = 8 holds, so the run
+# takes the headline's Γ–X–W–L.
+GMG_CLI_ARGS = ("--lattice", "FCC", "--problem", "maxwell", "--n", "2",
+                "--p", "2", "--path", "G,X,W,L", "--nk", "8", "--nev", "4")
+GMG_CLI_BAR = 1e-5
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and float32 flop/s
 # outside the tensor cores.
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -1645,8 +1673,9 @@ def phase_te(dev, setup):
 
 def phase_fcc_field(dev, setup, nd_shape, passes=FIELD_PASSES):
     """Config 4 on the field engine: the headline's FCC problem with the
-    exact "project" deflation, one cold pass and ``passes`` timed ones,
-    each with every count set to 0 just before and read just after.
+    exact "project" deflation, one cold pass and ``passes`` timed ones
+    (none: the cold pass is the one timed), each with every count set to
+    0 just before and read just after.
     Gates: max eigenvalue error against the analytic bands < 1e-6 (k
     rounded to float32 by the sweep, as on the headline), and the nd and
     Jacobi launches of a pass equal to ``expected_launches`` with no h1
@@ -1668,10 +1697,10 @@ def phase_fcc_field(dev, setup, nd_shape, passes=FIELD_PASSES):
     log("fcc-field", f"{op.space.ndofs} dofs, {c.nelem} elements, nd at "
         f"(l, q) = ({c.l}, {c.q}) on {nd_shape}; host stencils "
         f"{time.perf_counter() - t0:.2f} s; one cold pass and {passes} "
-        f"timed (cut from 3 for time)")
+        f"timed (cut from 3 for time; none: the cold pass is timed)")
     walls, shares = [], []
     for p in range(passes + 1):
-        if p == 1:
+        if p == min(1, passes):
             torch.cuda.reset_peak_memory_stats(dev)
         torch.cuda.synchronize()
         jacobi_cuda.launches = nd_apply.launches = h1_apply.launches = 0
@@ -1702,12 +1731,12 @@ def phase_fcc_field(dev, setup, nd_shape, passes=FIELD_PASSES):
                               got["jacobi"]) <= 0:
             raise RuntimeError(f"fcc-field: kernel launches {got} != the "
                                f"path's calls {want}")
-        if p:
+        if p or not passes:
             walls.append(res.wall_s)
             shares.append(share)
     wall = statistics.median(walls)
     log("fcc-field", f"config 4 FCC field: {len(kc) / wall:.4f} eig/s "
-        f"(median of {passes}; nk={len(kc)} / pass wall {wall:.3f} s), "
+        f"(median of {len(walls)}; nk={len(kc)} / pass wall {wall:.3f} s), "
         f"iters/k {res.iterations.mean():.2f} {res.iterations.tolist()}, "
         f"max eig err {err:.3e}, host-refine share "
         f"{statistics.median(shares):.4f}, launches per pass nd "
@@ -2014,6 +2043,176 @@ def phase_batched(dev, head, setup3, rods, setup4):
                                f"launches {got4} != the chunks' calls "
                                f"{want4}")
         launches[f"{tag}_chunk{BATCH_CHUNK}"] = got4
+    return launches
+
+
+def expected_gmg_launches(iterations, gmg):
+    """The kernel launches of σ-shift solves (``make_solve_fn(deflation=
+    "gmg")``), one per entry of ``iterations`` (a k's iterations, or a
+    k-batched solve's lockstep count i), with a = i + 2⌈i/16⌉ calls of
+    Ã (once an iteration on W, twice a 16-iteration segment on X and P):
+    nd "A" once per Ã; nd "M" three times per Ã (the projector's M u, the
+    shift's M P x, the pencil's M x) and twice more (the projector on X0,
+    the start whitening); h1 "A" ``gmg.launches_per_solve()`` per
+    projection (one on X0, one per Ã) and one for the coarse assembly;
+    Jacobi once an iteration (Rayleigh–Ritz) and once for the
+    whitening."""
+    out = dict.fromkeys(("nd M", "nd AM", "nd A", "h1 A", "h1 AM", "h1 M",
+                         "jacobi"), 0)
+    per = gmg.launches_per_solve()
+    for i in map(int, iterations):
+        a = i + 2 * -(-i // 16)
+        out["nd A"] += a
+        out["nd M"] += 3 * a + 2
+        out["h1 A"] += 1 + per * (1 + a)
+        out["jacobi"] += i + 1
+    return out
+
+
+def gmg_check(oracle, first):
+    """``[gmg]``'s gates on a config-3 result (text, ok). The k before
+    index ``first`` were solved from the seeded cold block (run_warm: k 0,
+    the nudged Γ; the batched run: every k), those from ``first`` on warm.
+    A warm k must lie within ``[diel]``'s bars (``diel_errors``, at the
+    oracle's k) with its refined residual under ``DIEL_RES_BAR``. A cold
+    float32 σ-shift solve at config 3 stalls (a stagnation stop, the
+    reference's engine alike from the same block: §6 of PERF.md), so a
+    cold k passes within the bars or with its f64 residual certificate at
+    ``DIEL_RES_BAR`` or above: it may miss, but must not be reported
+    converged while off the bars."""
+    import numpy as np
+
+    def check(res):
+        resid = res.residuals.max(axis=1)
+        text, bad = [], []
+        for ki, lo, hi, ok in diel_errors(res, oracle):
+            cold = ki < first
+            flagged = cold and resid[ki] >= DIEL_RES_BAR
+            good = (ok and resid[ki] < DIEL_RES_BAR) or flagged
+            text.append(f"{ki}: {lo:.3e} {hi:.3e}"
+                        + (" (cold; not converged: certificate "
+                           f"{resid[ki]:.3e})" if flagged else ""))
+            if not good:
+                bad.append(ki)
+        warm = resid[first:]
+        if not (np.all(np.isfinite(resid)) and np.all(warm < DIEL_RES_BAR)):
+            bad.append("residuals")
+        return ("oracle errors (k index: band 1, band 10) " + ", ".join(text)
+                + (f"; max refined residual of the warm k {warm.max():.3e}"
+                   if warm.size else ""), not bad)
+    return check
+
+
+def phase_gmg(dev, setup3):
+    """``[gmg]``: the σ-shift Maxwell engine (``make_solve_fn(deflation=
+    "gmg")``: LOBPCG on A + σ·M P with the QPGMG gradient projector and
+    Jacobi) at full width, config 3 (n=6 p=3, nk=16, 10 bands in 16,
+    device stop 1e-4, ``[diel]``'s maxiter, then the f64 host refine)
+    through ``run_warm`` and the k-batched ``run``, each with every count
+    set to 0 just before and read just after: ``[diel]``'s gates against
+    the certify record at every warm-started k, a certificate that flags
+    any cold-started k off them (``gmg_check``), the launches equal to the
+    path's calls (``expected_gmg_launches``). Then the CLI's n < 3 route in a child
+    process as a user starts it (``GMG_CLI_ARGS``, no ``--engine``): it
+    must say it picked gmg, exit 0, and give bands within ``GMG_CLI_BAR``
+    of the port's own complex128 CPU run of the same configuration, made
+    here. Returns {path: launches}."""
+    import argparse
+    import tempfile
+
+    import numpy as np
+    import torch
+    from bravais_tpu_torch.bands.sweep import BandSweep
+    from bravais_tpu_torch.cli import bands_app
+    from bravais_tpu_torch.cli.config import RunConfig
+
+    _, kc, op, _ = setup3
+    t0 = time.perf_counter()
+    solve = op.make_solve_fn(deflation="gmg")
+    gmg = op.qp_gmg()
+    coarse = gmg.levels[-1].op.space
+    log("gmg", f"config 3 on the gmg engine: sigma {op.sigma_shift:.6g}, "
+        f"QPGMG levels " + ", ".join(
+            f"{lv.op.space.grid.shape[0]}^3 p={lv.op.space.p} "
+            f"q={lv.op.space.q}" for lv in gmg.levels)
+        + f" (coarsest {int(np.prod(coarse.dof_shape))} dofs, exact "
+        f"solve), {gmg.launches_per_solve()} h1 launches a projection; "
+        f"hierarchy {time.perf_counter() - t0:.2f} s")
+    sweep = BandSweep(op, solve, nev=NEV, block=BLOCK, tol=TOL,
+                      maxiter=MAXITER, device_tol=DIEL_DEVICE_TOL)
+    oracle = diel_oracle(kc, op)
+    launches, failed = {}, []
+    for tag, run in (("run_warm", sweep.run_warm), ("run", sweep.run)):
+        check = gmg_check(oracle, first=1 if tag == "run_warm" else len(kc))
+        log_path(f"gmg config 3 {tag}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_counts()
+        res = run(kc)
+        torch.cuda.synchronize()
+        got = _counts()
+        its = (res.iterations.tolist() if tag == "run_warm"
+               else [int(max(res.iterations))])
+        want = expected_gmg_launches(its, gmg)
+        text, ok = check(res)
+        log("gmg", f"config 3 {tag}: {overlap(res)}, "
+            f"{len(kc) / res.wall_s:.4f} eig/s, iterations per k "
+            f"{res.iterations.tolist()} (mean {res.iterations.mean():.2f}"
+            + ("" if tag == "run_warm" else
+               f", {its[0]} lockstep") + f"), launches {got} (expected "
+            f"{want}), peak device memory {peak_mib(dev):.1f} MiB; {text}; "
+            f"max refined residual per k " + " ".join(
+                f"{r:.3e}" for r in res.residuals.max(axis=1)))
+        if not ok:
+            failed.append(f"config 3 {tag}: a gate failed: {text}")
+        if got != want or min(got["nd A"], got["nd M"], got["h1 A"],
+                              got["jacobi"]) <= 0:
+            failed.append(f"config 3 {tag}: kernel launches {got} != the "
+                          f"path's calls {want}")
+        launches[f"config3_{tag}"] = got
+    log_path(None)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "fcc_n2"
+        cmd = [sys.executable, "-m", "bravais_tpu_torch", *GMG_CLI_ARGS,
+               "--out", str(out)]
+        log("gmg", " ".join(cmd[1:]))
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")}
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=REPO, text=True, capture_output=True,
+                           timeout=900, env=env)
+        wall = time.perf_counter() - t0
+        for line in r.stdout.splitlines():
+            log("gmg", line)
+        if r.returncode:
+            raise RuntimeError(f"gmg cli exited {r.returncode}: "
+                               f"{r.stderr[-3000:]}")
+        if "# engine gmg" not in r.stdout.splitlines():
+            raise RuntimeError("gmg cli: the n < 3 route did not pick gmg")
+        lam = np.load(out / "bands.npz")["eigenvalues"]
+        iters = [json.loads(line)["iters"] for line in r.stdout.splitlines()
+                 if line.startswith("{")]
+        ap = argparse.ArgumentParser()
+        RunConfig.add_cli_args(ap)
+        cfg = RunConfig.from_cli_args(ap.parse_args(
+            [*GMG_CLI_ARGS, "--device", "cpu", "--precision", "f64", "--out",
+             str(Path(tmp) / "cpu")]))
+        t0 = time.perf_counter()
+        lam_cpu = bands_app.run(cfg, log=lambda s: None).eigenvalues
+        cpu_s = time.perf_counter() - t0
+    err = band_errors(lam, lam_cpu)
+    log("gmg", f"FCC n=2 p=2 via the CLI (auto -> gmg): {wall:.2f} s "
+        f"(process start and build load included), iters/k "
+        f"{np.mean(iters):.2f} {iters}; bands off the port's complex128 "
+        f"CPU run ({cpu_s:.2f} s) by {err:.3e} (<{GMG_CLI_BAR:g}; relative, "
+        f"to the top band below 1e-3 of it)")
+    if not (lam.shape == lam_cpu.shape and np.all(np.isfinite(lam))
+            and err < GMG_CLI_BAR):
+        failed.append(f"cli: bands {lam.shape} off the CPU run by "
+                      f"{err:.3e}")
+    if failed:
+        raise RuntimeError("gmg: " + "; ".join(failed))
     return launches
 
 
@@ -2947,6 +3146,7 @@ def main():
     log_path("config5")
     c5 = phase_config5(dev)
     batched = phase_batched(dev, head, setup3, rods, setup4)
+    gmg = phase_gmg(dev, setup3)
     cert = phase_certify(dev)
     log_path(None)
     cert_prod = phase_certify_prod(dev)
@@ -2958,7 +3158,7 @@ def main():
     phase_one_operation(dev, setup3[2], setup4[2])
     new_runs = [(key, rec) for key, rec in LAUNCHED.items()
                 if rec["path"].endswith(f"chunk={BATCH_CHUNK}")
-                or rec["path"].startswith("certify")]
+                or rec["path"].startswith(("certify", "gmg"))]
     times = kernel_times(dev, setup3[2], rods, op4=setup4[2], op5=op5,
                          batched=True, logged=new_runs)
     log_times(times)
@@ -2994,6 +3194,7 @@ def main():
         "config5_field": c5["field"]["jacobi"],
         **{f"batched_{path}": got["jacobi"] for path, got in batched.items()},
         **{f"certify_eps{e:g}": got["jacobi"] for e, got in cert.items()},
+        **{f"gmg_{path}": got["jacobi"] for path, got in gmg.items()},
         "certify_prod": cert_prod["jacobi"], "scale": scale,
         "scale_dd_model": scale_dd.get("jacobi", 0)}
     # [shard]: each rank's launches on each sharded path, and the shapes
@@ -3023,6 +3224,8 @@ def main():
                           ("batched_fcc_field", batched["fcc_field"]),
                           *((f"certify_eps{e:g}", got)
                             for e, got in cert.items()),
+                          *((f"gmg_{path}", got)
+                            for path, got in gmg.items()),
                           ("certify_prod", cert_prod),
                           ("scale_dd_model", scale_dd),
                           *((key, got) for key, got in shard_runs
@@ -3043,6 +3246,8 @@ def main():
            for path in ("config3", "config3_chunk4", "config2")},
         **{f"certify_eps{e:g}": {w: got[f"h1 {w}"] for w in ("A", "AM", "M")}
            for e, got in cert.items()},
+        **{f"gmg_{path}": {w: got[f"h1 {w}"] for w in ("A", "AM", "M")}
+           for path, got in gmg.items()},
         "certify_prod": {w: cert_prod[f"h1 {w}"] for w in ("A", "AM", "M")},
         **{key: {w: got.get(f"h1 {w}", 0) for w in ("A", "AM", "M")}
            for key, got in shard_runs
@@ -3050,7 +3255,7 @@ def main():
     h1_rec["launches"] = diel["h1"] + sum(
         v for path in (rods2d, te, c5["field"], batched["config3"],
                        batched["config3_chunk4"], batched["config2"],
-                       *cert.values(), cert_prod)
+                       *cert.values(), *gmg.values(), cert_prod)
         for key, v in path.items() if key.startswith("h1")) + sum(
         v for _, got in shard_runs for key, v in got.items()
         if key.startswith("h1"))

@@ -8,6 +8,8 @@ resumes recomputing only the unfinished k-points; a saved mode satisfies
 its eigen-equation; the VTK dump), plus:
 
 * the CLI's engine rule, every accept and every error, as a table;
+* the gmg engine (``--engine gmg``, and ``auto`` on n < 3) run to the end
+  in float64 against the reference CLI's bands (1e-8);
 * a run directory written by either package loads with the other's
   ``load_bands``;
 * the port's ``run(cfg)`` on a tiny float64 SQR TM-rods problem against
@@ -200,7 +202,7 @@ class _Op:
 SPECTRAL = ("make_spectral_solve_fn", {})
 PROJECT = ("make_solve_fn", {"deflation": "project"})
 CHEBY = ("make_solve_fn", {"deflation": "project-cheby"})
-QPGMG = "needs QPGMG"
+GMG = ("make_solve_fn", {"deflation": "gmg"})
 
 
 @pytest.mark.parametrize("problem,engine,n,invariant,want", [
@@ -210,9 +212,9 @@ QPGMG = "needs QPGMG"
     ("maxwell", "field", 8, True, PROJECT),
     ("maxwell", "field", 8, False, CHEBY),
     ("maxwell", "spectral", 8, False, "needs element-invariant"),
-    ("maxwell", "gmg", 8, True, QPGMG),
-    ("maxwell", "auto", 2, True, QPGMG),
-    ("maxwell", "auto", 2, False, QPGMG),
+    ("maxwell", "gmg", 8, True, GMG),
+    ("maxwell", "auto", 2, True, GMG),
+    ("maxwell", "auto", 2, False, GMG),
     ("maxwell", "warp", 8, True, "unknown --engine"),
     ("tm", "auto", 8, True, ("make_solve_fn", {})),
     ("scalar", "spectral", 8, True, ("make_solve_fn", {})),
@@ -231,8 +233,6 @@ def test_engine_rule(problem, engine, n, invariant, want):
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--engine", "gmg"], "needs QPGMG"),
-    (["--n", "2"], "needs QPGMG"),
     (["--mode", "warm-chain"], "--mode warm-chain is not ported"),
     (["--shard", "--device", "cuda"], "no CUDA device"),
     (["--device", "cuda"], "no CUDA device"),
@@ -252,6 +252,35 @@ def test_cli_errors(extra, message, monkeypatch, capsys):
         bands_app.main(argv + extra)
     assert e.value.code == 2
     assert message in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("extra", [
+    ["--engine", "gmg", "--n", "3", "--p", "1"],
+    ["--n", "2", "--p", "2"],
+], ids=["engine-gmg", "n2-auto"])
+def test_gmg_engine_runs_and_matches_reference(extra, tmp_path, capsys):
+    """``--engine gmg`` on an n >= 3 grid, and ``auto`` on n = 2 (the
+    engine rule's gmg route), run to the end on ``--device cpu
+    --precision f64``; the bands equal the reference CLI's ``run`` on the
+    same configuration within 1e-8 (both solve the σ-shift pencil to the
+    same stop from the same start block)."""
+    argv = ["--lattice", "FCC", "--problem", "maxwell", "--path", "G,X",
+            "--nk", "2", "--nev", "2", "--device", "cpu", "--precision",
+            "f64", "--out", str(tmp_path / "port")] + extra
+    assert bands_app.main(argv) == 0
+    assert "# engine gmg" in capsys.readouterr().out.splitlines()
+    lam = load_bands(tmp_path / "port")[0]["eigenvalues"]
+    kw = dict(lattice="FCC", problem="maxwell", path=[["G", "X"]], nk=2,
+              nev=2, precision="f64", n=int(extra[extra.index("--n") + 1]),
+              p=int(extra[extra.index("--p") + 1]))
+    if "--engine" in extra:
+        kw["engine"] = "gmg"
+    lam_r = run_ref(RunConfigRef(out=str(tmp_path / "ref"), **kw),
+                    log=lambda s: None).eigenvalues
+    assert np.all(np.isfinite(lam)) and lam.shape == (2, 2)
+    top = np.abs(lam_r).max(axis=1, keepdims=True)
+    scale = np.where(np.abs(lam_r) > 1e-3 * top, np.abs(lam_r), top)
+    assert np.max(np.abs(lam - lam_r) / scale) < 1e-8, (lam, lam_r)
 
 
 def test_plot_without_matplotlib_is_an_error(monkeypatch, capsys):

@@ -1,7 +1,8 @@
 """The port on a CUDA device: the hand-written Jacobi, Nédélec (nd) and
 H1 element kernels against their plain torch versions, the field
-engine's and the scalar Helmholtz operator's fused (A, M) applies and one
-multigrid V-cycle on the card against the CPU, the warm spectral, field
+engine's and the scalar Helmholtz operator's fused (A, M) applies, one
+multigrid V-cycle and the quasi-periodic multigrid's solve on the card
+against the CPU, the warm spectral, field
 and scalar sweeps and the k-batched ``run`` of every engine on the card
 against the same sweeps on the CPU, and two gloo ranks sharing the card
 (a k-sharded ``run`` and a domain-decomposed field apply against one
@@ -345,16 +346,18 @@ def test_batched_run_on_cuda_matches_cpu(cuda, engine):
 
 
 @pytest.mark.parametrize("engine", ["spectral", "project", "project-cheby",
-                                    "gmg"])
+                                    "gmg", "sigma-gmg"])
 def test_batched_engines_on_cuda_match_cpu(cuda, engine):
     """Each engine that ``run`` now batches, three k in one k-batched
     solve on the card and on the CPU: the FCC spectral and "project"
-    field engines (n=3 p=2), config 3's sphere on "project-cheby" (n=3
-    p=2), config 2's rods with GMG (n=8 p=2). The same iterations per k
-    (±1), refined bands within 1e-6 relative (to 1e-2 of the k's top
-    band below it), and on the card every element apply of the batch is
-    one launch for the three k: the field engines' nd launches equal
-    those of one solve at the batch's iteration count."""
+    field engines (n=3 p=2), config 3's sphere on "project-cheby" and on
+    the σ-shift "gmg" deflation (n=3 p=2), config 2's rods with GMG (n=8
+    p=2). The same iterations per k (±1), refined bands within 1e-6
+    relative (to 1e-2 of the k's top band below it), and on the card
+    every element apply of the batch is one launch for the three k: the
+    field engines' nd launches equal those of one solve at the batch's
+    iteration count, and the σ-shift's h1 launches those of its QPGMG
+    projections."""
     out = {}
     for dev in ("cpu", cuda):
         if engine == "gmg":
@@ -365,16 +368,18 @@ def test_batched_engines_on_cuda_match_cpu(cuda, engine):
             sweep = BandSweep(op, nev=4, block=8, tol=1e-6, maxiter=400,
                               device_tol=1e-4)
         else:
-            if engine == "project-cheby":
+            sphere = engine in ("project-cheby", "sigma-gmg")
+            if sphere:
                 op = _sphere_op(3, 2, dev)
             else:
                 op = BlochCurlCurl(NedelecSpace.make(PeriodicGrid.make(
                     make_lattice("FCC"), 3), 2), device=dev)
             lat = op.space.grid.lattice
             ks = np.asarray([2e-2 * lat.B[0], lat.point_cart("X"),
-                             lat.point_cart("M" if engine == "project-cheby"
-                                            else "W")])
+                             lat.point_cart("M" if sphere else "W")])
             solve = (op.make_spectral_solve_fn() if engine == "spectral"
+                     else op.make_solve_fn(deflation="gmg")
+                     if engine == "sigma-gmg"
                      else op.make_solve_fn(deflation=engine))
             sweep = BandSweep(op, solve, nev=4, block=8, tol=1e-6,
                               maxiter=200,
@@ -397,8 +402,49 @@ def test_batched_engines_on_cuda_match_cpu(cuda, engine):
     elif engine == "gmg":
         v = sweep.gmg.launches_per_vcycle()
         assert h1 == v * it + it + 2 * -(-it // 16) + 1
+    elif engine == "sigma-gmg":
+        # Ã on W once an iteration and on X, P twice a segment; each Ã
+        # one nd "A" and three nd "M" (the projector's, the shift's, the
+        # pencil's), each projection (X0's and Ã's) QPGMG's h1 launches,
+        # plus the X0 projector's and the whitening's M and the coarse
+        # assembly's h1.
+        a = it + 2 * -(-it // 16)
+        per = op.qp_gmg().launches_per_solve()
+        assert nd == a + 3 * a + 2
+        assert h1 == 1 + per * (1 + a)
     else:
         assert nd == h1 == 0
+
+
+@pytest.mark.parametrize("table", [False, True], ids=["one-k", "k-table"])
+def test_qpgmg_solve_on_cuda_matches_cpu(cuda, table):
+    """Config 3's quasi-periodic multigrid (CUB ε = 13 sphere, n=6 p=3:
+    levels 6³ p=3, 6³ p=1 and the exact 3³ p=1 coarse solve), three
+    cycles on a 16-row block at one k or on (4, 16)-row blocks with a
+    table of 4 k: the card (every level apply one h1 "A" launch, the
+    coarse assembly one more) against the CPU's plain path, within 1e-5
+    relative (float32 roundoff through three cycles)."""
+    lat = make_lattice("CUB")
+    kfr = [(0.3, 0.2, 0.1), (0.5, 0.0, 0.0), (0.5, 0.5, 0.0),
+           (0.1, 0.25, 0.4)]
+    k = (np.asarray([lat.k_cart(f) for f in kfr]) if table
+         else lat.k_cart(kfr[0]))
+    out = {}
+    for dev in ("cpu", cuda):
+        op = _sphere_op(6, 3, dev)
+        lead = (4, 16) if table else (16,)
+        rng = np.random.default_rng(8)
+        shp = lead + op.h1.dof_shape
+        b = (rng.standard_normal(shp) + 1j * rng.standard_normal(shp)
+             ).astype(np.complex64)
+        gmg = op.qp_gmg()
+        before = h1_apply.launches_by_want["A"]
+        out[str(dev)] = gmg.solve(k, torch.as_tensor(b, device=dev))
+        launches = h1_apply.launches_by_want["A"] - before
+    assert [lv.op.space.grid.shape for lv in gmg.levels] == [
+        (6, 6, 6), (6, 6, 6), (3, 3, 3)]
+    assert launches == gmg.launches_per_solve() + 1
+    assert _rel(out[str(cuda)].cpu(), out["cpu"]) < 1e-5
 
 
 def test_element_kernels_refuse_other_inputs(cuda):

@@ -158,8 +158,9 @@ def test_project_refuses_varying_eps_and_unported_names():
     op, _ = _ops("CUB", eps=_sphere(lat))
     with pytest.raises(ValueError, match="element-translation-invariant"):
         op.make_solve_fn(deflation="project")
-    for name in ("cg", "gmg", "fastdiag", "project-cg"):
-        with pytest.raises(ValueError, match="'project' or 'project-cheby'"):
+    for name in ("cg", "fastdiag", "project-cg"):
+        with pytest.raises(ValueError, match="'project', 'project-cheby' "
+                                             "or 'gmg'"):
             op.make_solve_fn(deflation=name)
 
 
