@@ -34,7 +34,8 @@ modes; a ``--resume`` shards only the k still to do.
 The Maxwell ``gmg`` engine (``--engine gmg``, and ``auto`` on a grid
 with n < 3, where the fast-diagonal stencils do not exist) is the σ-shift
 solve with the quasi-periodic multigrid projector
-(``BlochCurlCurl.make_solve_fn(deflation="gmg")``). What the port lacks
+(``BlochCurlCurl.make_solve_fn(deflation="gmg")`` with Jacobi). What the
+port lacks
 exits with an error that names it: ``--mode warm-chain``.
 """
 
@@ -156,7 +157,9 @@ def make_solve_fn(cfg, op):
     None; scalar "spectral" → ``make_solve_fn``; Maxwell "spectral" →
     ``make_spectral_solve_fn``; "field" → ``make_solve_fn`` with the exact
     "project" deflation for invariant ε and "project-cheby" for varying
-    ε; "gmg" → ``make_solve_fn(deflation="gmg")``, the σ-shift solve."""
+    ε, each with the "fastdiag" preconditioner; "gmg" →
+    ``make_solve_fn(deflation="gmg")`` with Jacobi, the σ-shift solve (the
+    reference CLI's choices)."""
     engine = engine_name(cfg, op)
     invariant = op._coef_elem_invariant()
     if cfg.problem != "maxwell":
@@ -169,9 +172,10 @@ def make_solve_fn(cfg, op):
         return op.make_spectral_solve_fn()
     if engine == "field":
         return op.make_solve_fn(
-            deflation="project" if invariant else "project-cheby")
+            deflation="project" if invariant else "project-cheby",
+            precond="fastdiag")
     if engine == "gmg":
-        return op.make_solve_fn(deflation="gmg")
+        return op.make_solve_fn(deflation="gmg", precond=None)
     raise Unsupported(f"unknown --engine {engine!r}")
 
 

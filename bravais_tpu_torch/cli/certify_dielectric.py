@@ -104,7 +104,7 @@ def _sweep(sp, eps, nev, dtype, device, device_tol, tol, cheby_target=None):
     from bravais_tpu_torch.operators.curlcurl import BlochCurlCurl
 
     op = BlochCurlCurl(sp, eps=eps, dtype=dtype, device=device)
-    solve = op.make_solve_fn(deflation="project-cheby",
+    solve = op.make_solve_fn(deflation="project-cheby", precond="fastdiag",
                              cheby_target=cheby_target)
     return BandSweep(op, solve, nev=nev, block=nev + 6, tol=tol,
                      maxiter=400, device_tol=device_tol)

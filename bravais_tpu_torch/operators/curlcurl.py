@@ -24,23 +24,25 @@ What is here:
   ``apply_M``, ``apply_AM`` through the fused Nédélec element kernel
   (``operators/nd_apply.py``, on CUDA ``csrc/nd_apply.cu``), the discrete
   gradient ``apply_Gk``/``apply_GkH``, the deflation Laplacian
-  ``apply_Lk`` through ``QPLaplace`` (the H1 kernel, ``csrc/h1_apply.cu``),
-  the exact fast-diagonal and the preconditioned-Chebyshev gradient
-  projectors and ``make_solve_fn`` (the reference's ``deflation`` values
-  "project" and "project-cheby", ``precond="fastdiag"``);
-* the σ-shift field engine, ``make_solve_fn(deflation="gmg")``: LOBPCG on
-  Ã = A + σ·M P with the gradient projector P through the quasi-periodic
-  multigrid ``qp_gmg()`` (``gradient_component_gmg``, ``sigma_shift``),
-  the CLI's ``gmg`` engine;
+  ``apply_Lk`` through ``QPLaplace`` (the H1 kernel, ``csrc/h1_apply.cu``);
+* the gradient projectors P u = G L⁻¹ Gᴴ M u: the direct fast-diagonal
+  L-solve ``gradient_component_fd``, preconditioned CG on the true L, one
+  CG per row, ``gradient_component`` (``project_out_gradients``),
+  preconditioned Chebyshev ``gradient_component_cheby`` and QPGMG cycles
+  ``gradient_component_gmg`` (``qp_gmg()``);
+* the outer preconditioners ``fd_precond`` ((A + sM)⁻¹ by the block
+  factorization) and ``fd_precond_cg`` (a few per-row PCG steps on the
+  true A + sM, preconditioned by that solve);
+* ``make_solve_fn``: the reference's field-engine solves, LOBPCG with
+  per-iteration projection ("project", "project-cg", "project-cheby") or
+  on the σ-shifted Ã = A + σ·M P ("cg", the default, "fastdiag", "gmg"),
+  preconditioned by Jacobi, "fastdiag" or "fastdiag-cg";
 * the operator diagonals ``diag_A``/``diag_M`` (the built-in sweep's
   Jacobi preconditioner);
 * ``CurlCurlSlab``: one rank's slab of the field applies split along the
   first dof axis over a process group (domain decomposition);
 * the f64 gradient component ``gradient_component_np`` (exact for
   element-invariant ε, twin-preconditioned CG on the true L otherwise).
-
-Not ported: the reference's other deflations ("cg", "fastdiag",
-"project-cg") and preconditioners (``fd_precond_cg`` among them).
 """
 
 from __future__ import annotations
@@ -68,6 +70,22 @@ _CYC = ((0, 1, 2), (1, 2, 0), (2, 0, 1))  # (r, s, t) cyclic triples
 #: Kernel contraction per application of the Chebyshev gradient projector
 #: (the reference's measured production target).
 CHEBY_TARGET = 0.15
+
+#: ``make_solve_fn``'s deflations and outer preconditioners.
+DEFLATIONS = ("cg", "gmg", "fastdiag", "project", "project-cg",
+              "project-cheby")
+PRECONDS = (None, "fastdiag", "fastdiag-cg")
+
+
+def _rowdot(a: torch.Tensor, b: torch.Tensor, ndof: int) -> torch.Tensor:
+    """⟨a_i, b_i⟩ per row of blocks (..., *dof) with ``ndof`` dof axes:
+    the reference's ``vdot`` of one field under its vmap over rows."""
+    return (a.conj() * b).sum(dim=tuple(range(-ndof, 0)))
+
+
+def _col(t: torch.Tensor, ndof: int) -> torch.Tensor:
+    """A per-row scalar (...,) broadcast over ``ndof`` dof axes."""
+    return t.reshape(t.shape + (1,) * ndof)
 
 
 class BlochCurlCurl:
@@ -474,6 +492,21 @@ class BlochCurlCurl:
                 return False
         return True
 
+    def coef_contrast(self) -> float:
+        """max/min ratio over the ε and μ⁻¹ quadrature values: it bounds
+        the condition number of the mean-twin-preconditioned operators."""
+        out = 1.0
+        for a in (self._eps_q64, self._mu_inv_q64):
+            a = np.asarray(a, np.float64)
+            out = max(out, float(a.max() / max(a.min(), 1e-300)))
+        return out
+
+    def adaptive_cg_iters(self) -> int:
+        """The CG budget of the true-L projector at contrast κ: ≈3√κ steps
+        drive the CG error factor ((√κ−1)/(√κ+1))^its below ~3e-3, and at
+        least 8."""
+        return int(max(8, np.ceil(3.0 * np.sqrt(self.coef_contrast()))))
+
     def fastdiag(self):
         """FastDiag with the "A" and "M" stencils. Exact when the
         coefficients are element-translation-invariant; otherwise built
@@ -606,13 +639,52 @@ class BlochCurlCurl:
 
     # -- field engine: preconditioner, projector, solve ---------------------
 
-    def fd_precond(self, k):
-        """Outer LOBPCG preconditioner R ↦ (A + sM)⁻¹ R, s the band scale
-        ``default_fd_shift``, through the block factorization ("lu": a
-        batched inverse of the (B, D, D) blocks of the exact, or
-        mean-twin, shifted operator), on blocks of fields."""
-        return self.fastdiag().solver(
-            [("A", 1.0), ("M", self.default_fd_shift())], k)
+    def fd_precond(self, k, shift: float | None = None):
+        """Outer LOBPCG preconditioner R ↦ (A + sM)⁻¹ R, s = ``shift`` or
+        the band scale ``default_fd_shift``, through the block
+        factorization ("lu": a batched inverse of the (B, D, D) blocks of
+        the exact, or mean-twin, shifted operator), on blocks of fields
+        (a k table: one factorization per k)."""
+        s_ = float(shift if shift is not None else self.default_fd_shift())
+        return self.fastdiag().solver([("A", 1.0), ("M", s_)], k)
+
+    def fd_precond_cg(self, k, shift: float | None = None,
+                      inner_iters: int = 4, *, ph=None):
+        """Contrast-robust outer preconditioner for varying ε: R ↦ x ≈
+        (A + sM)⁻¹ R by ``inner_iters`` fixed PCG steps on the TRUE
+        shifted operator, preconditioned by :meth:`fd_precond`'s (exact
+        or mean-twin) block solve; s as there. Every row of a block
+        (rows, 3, N₁, N₂, N₃), or (nk, rows, ...) with a k table, runs
+        its own PCG (its own complex α, β, guarded at |·| > 1e-30), as
+        under the reference's vmap over rows. The shifted apply is one
+        fused (A, M) element apply a step."""
+        s_ = float(shift if shift is not None else self.default_fd_shift())
+        minv = self.fd_precond(k, s_)
+        if ph is None:
+            ph = self.phases(k)
+
+        def apply(x):
+            ax, mx = self.apply_AM(x, ph=ph)
+            return ax + s_ * mx
+
+        def pc(R):
+            R = R.to(self.dtype)
+            x, r, z = torch.zeros_like(R), R, minv(R)
+            p, rz = z, _rowdot(R, z, 4)
+            for _ in range(inner_iters):
+                Ap = apply(p)
+                denom = _rowdot(p, Ap, 4)
+                alpha = _col(torch.where(denom.abs() > 1e-30, rz / denom,
+                                         0.0), 4)
+                x = x + alpha * p
+                r = r - alpha * Ap
+                zn = minv(r)
+                rzn = _rowdot(r, zn, 4)
+                beta = _col(torch.where(rz.abs() > 1e-30, rzn / rz, 0.0), 4)
+                p, rz = zn + beta * p, rzn
+            return x
+
+        return pc
 
     def qp_L(self):
         """The quasi-periodic ε-Laplacian TWIN of L = Gᴴ M_ε G:
@@ -630,6 +702,101 @@ class BlochCurlCurl:
         """L φ = Gᴴ M_ε G φ on an H1 block (rows, N₁, N₂, N₃), through
         :meth:`qp_L` (the h1 kernel at k = 0, phases in the gather)."""
         return self.qp_L().apply_A(phi, k, ph=ph)
+
+    def gradient_component_fd(self, u: torch.Tensor, k=None, *, ph=None,
+                              lsolve=None) -> torch.Tensor:
+        """P u = G L⁻¹ Gᴴ M u with L⁻¹ the DIRECT fast-diagonal solve (the
+        exact projector for element-invariant ε; the mean-ε twin's
+        otherwise). ``lsolve``: ``fastdiag_L().solver([("L", 1.0)], k,
+        method="eigh")`` (formed here if not given), a spectral inverse:
+        stable on the ill-conditioned near-Γ blocks, a pseudo-inverse at
+        Γ. ``u``: block (rows, 3, N₁, N₂, N₃), or (nk, rows, ...) with a
+        k table."""
+        if ph is None:
+            ph = self.phases(k)
+        if lsolve is None:
+            lsolve = self.fastdiag_L().solver([("L", 1.0)], k,
+                                              method="eigh")
+        rhs = self.apply_GkH(self.apply_M(u, ph=ph), ph=ph)
+        return self.apply_Gk(lsolve(rhs), ph=ph)
+
+    @property
+    def h1_diag0(self) -> torch.Tensor:
+        """The CG projector's Jacobi diagonal: diag A at k = 0 of
+        ``BlochHelmholtz(h1, α=ε, β=ε)`` (the ε-weighted stiffness),
+        floored at 1e-12, on the device (built once)."""
+        if not hasattr(self, "_h1_diag0"):
+            from bravais_tpu_torch.operators.helmholtz import BlochHelmholtz
+            helm = BlochHelmholtz(self.h1, alpha=self._eps_fn,
+                                  beta=self._eps_fn, dtype=self.dtype,
+                                  device="cpu")
+            d = np.maximum(helm.diag_A(np.zeros(3)).numpy(), 1e-12)
+            self._h1_diag0 = torch.as_tensor(d, device=self.device)
+        return self._h1_diag0
+
+    def gradient_component(self, u: torch.Tensor, k=None,
+                           cg_iters: int = 25, lprecond=None, *,
+                           ph=None) -> torch.Tensor:
+        """P u = G L⁻¹ Gᴴ M u, the M-orthogonal projection onto the
+        gradients, with L = Gᴴ M_ε G (:meth:`apply_Lk`) solved by
+        preconditioned CG: ``lprecond`` (r ↦ z on H1 blocks) or Jacobi on
+        :attr:`h1_diag0`. Each row of the block (rows, 3, N₁, N₂, N₃), or
+        of (nk, rows, ...) with a k table, runs its own CG, as under the
+        reference's vmap over rows: its own α and β (real parts, α only
+        over a positive denominator), its own true residual ‖rhs − L x‖
+        each step, its best iterate over the trajectory, and its own
+        exit once that residual is ≤ 30·eps·‖rhs‖; a row that has exited
+        keeps its state. The loop stops after ``cg_iters`` steps or when
+        no row is active (one flag read by the host a step)."""
+        if ph is None:
+            ph = self.phases(k)
+        rhs = self.apply_GkH(self.apply_M(u, ph=ph), ph=ph)
+        dpc = self.h1_diag0
+        pc = lprecond if lprecond is not None else (lambda r: r / dpc)
+        eps = torch.finfo(self.rdtype).eps
+        x = torch.zeros_like(rhs)
+        r, p = rhs, pc(rhs)
+        rz = _rowdot(rhs, p, 3)
+        brn = torch.linalg.vector_norm(rhs, dim=(-3, -2, -1))
+        rtol = (30.0 * eps) * brn
+        bx = x
+        for _ in range(cg_iters):
+            act = brn > rtol
+            if not bool(act.any()):
+                break
+            Ap = self.apply_Lk(p, ph=ph)
+            # L and the preconditioner are HPD: real α, β, and α only over
+            # a positive denominator (f32 cancellation near the floor).
+            denom = _rowdot(p, Ap, 3).real
+            rzr = rz.real
+            alpha = _col(torch.where(denom > 1e-30, rzr / denom, 0.0), 3
+                         ).to(self.dtype)
+            xn = x + alpha * p
+            rn = r - alpha * Ap
+            z = pc(rn)
+            rz_new = _rowdot(rn, z, 3)
+            beta = _col(torch.where(rzr.abs() > 1e-30, rz_new.real / rzr,
+                                    0.0), 3).to(self.dtype)
+            # The TRUE residual: past the f32 floor the recursion's keeps
+            # falling while x drifts, so the best honest iterate is kept.
+            res = torch.linalg.vector_norm(rhs - self.apply_Lk(xn, ph=ph),
+                                           dim=(-3, -2, -1))
+            better = _col(act & (res < brn), 3)
+            bx = torch.where(better, xn, bx)
+            brn = torch.where(act, torch.minimum(brn, res), brn)
+            keep = _col(act, 3)
+            x = torch.where(keep, xn, x)
+            r = torch.where(keep, rn, r)
+            p = torch.where(keep, z + beta * p, p)
+            rz = torch.where(act, rz_new, rz)
+        return self.apply_Gk(bx, ph=ph)
+
+    def project_out_gradients(self, u: torch.Tensor, k=None,
+                              cg_iters: int = 25, lprecond=None, *,
+                              ph=None) -> torch.Tensor:
+        """u − P u (divergence-projection deflation) with
+        :meth:`gradient_component`."""
+        return u - self.gradient_component(u, k, cg_iters, lprecond, ph=ph)
 
     def qp_gmg(self):
         """Multigrid on the quasi-periodic ε-Laplacian (``eigen.gmg.QPGMG``
@@ -726,55 +893,67 @@ class BlochCurlCurl:
             rho = rho_new
         return self.apply_Gk(x + d, ph=ph)
 
-    def make_solve_fn(self, deflation: str = "project-cheby",
+    def make_solve_fn(self, *, deflation: str = "cg",
+                      precond: str | None = None, cg_iters: int = 25,
+                      sigma: float | None = None,
                       cheby_target: float | None = None) -> Callable:
-        """The field-engine solve. With "project" or "project-cheby" (the
-        reference's ``make_solve_fn`` with ``precond="fastdiag"``): LOBPCG
-        on (A(k), M) with the per-iteration X/P projection of a gradient
-        projector P and the (A + sM)⁻¹ fast-diagonal preconditioner
-        followed by that projection. A and M come together from the fused
-        Nédélec kernel (the ``AM`` hook). With "gmg" the σ-shift solve
-        (:meth:`_sigma_shift_solve`).
+        """The field-engine solve (the reference's ``make_solve_fn``, whose
+        defaults these are): LOBPCG on the pencil (A(k), M) with a
+        gradient projector P u = G L⁻¹ Gᴴ M u keeping the gradient kernel
+        of A out of the bands.
 
-        ``deflation``:
+        ``deflation``, the projector and how it is used:
 
-        * "project-cheby" (default, any ε): P by preconditioned Chebyshev
-          on the true L (:meth:`gradient_component_cheby`), ``cheby_steps(
-          cheby_target)`` steps (the production target when None);
-        * "project" (element-invariant ε only): the exact P u =
-          G L⁻¹ Gᴴ M u, L⁻¹ the fast-diagonal solve (one Jacobi eigh of
-          the L blocks per k). With varying ε that solve is only the
-          mean-ε twin, whose error I − L̃⁻¹L has eigenvalues up to the
-          contrast − 1, so per-iteration use would amplify the kernel; it
-          raises ``ValueError`` instead;
-        * "gmg" (any ε; the reference's ``deflation_gmg=True``): LOBPCG on
-          Ã = A + σ·M P (σ = :attr:`sigma_shift`), P by three QPGMG cycles
-          (:meth:`gradient_component_gmg`), Jacobi on diag A, no per-
-          iteration projection; ``cheby_target`` is not read.
+        * σ-shift ("cg", the default, "fastdiag", "gmg"): LOBPCG on
+          Ã x = A x + σ·M(P x), A and M applied separately. Kernel
+          directions get eigenvalue σ, above the bands, and physical modes
+          (Gᴴ M u = 0) are left as they are, so leakage into the kernel
+          corrects itself. σ is ``sigma`` if given, else ``fd_sigma(m)``
+          (m the block's rows) under a fast-diagonal ``precond``, else
+          :attr:`sigma_shift`;
+        * per-iteration projection ("project", "project-cg",
+          "project-cheby"): LOBPCG on (A, M) with A and M from one fused
+          element apply (the ``AM`` hook), P subtracted from X and P every
+          iteration (``kernel_project``) and applied after the
+          preconditioner. "project" needs element-invariant ε (with
+          varying ε its direct solve is the mean-ε twin, whose error
+          I − L̃⁻¹L has eigenvalues up to the contrast − 1, so
+          per-iteration use would amplify the kernel): it raises
+          ``ValueError`` otherwise.
 
-        The reference's other deflations ("cg", "fastdiag", "project-cg")
-        and preconditioners are not ported.
+        P: "cg" and "project-cg" — :meth:`gradient_component` with
+        ``cg_iters`` steps preconditioned by the L-twin's fast-diagonal
+        eigh solve; "fastdiag" and "project" — :meth:`gradient_component_fd`
+        (that solve alone); "project-cheby" — :meth:`gradient_component_cheby`
+        with ``cheby_steps(cheby_target)`` steps (the production target when
+        None); "gmg" — :meth:`gradient_component_gmg` (three QPGMG cycles).
+
+        ``precond``: None — Jacobi on ``diag_A(k)`` (what the reference's
+        sweep hands an engine for a Maxwell operator); "fastdiag" —
+        :meth:`fd_precond` at its default shift; "fastdiag-cg" —
+        :meth:`fd_precond_cg` at that shift with 3 inner steps.
 
         Returns ``solve(X0, k, nev, tol, maxiter)`` → (LobpcgResult with
         eigenvector block (m, 3, N₁, N₂, N₃), None). With a k table
         (nk, 3) it solves every k at once (``solve.batched``): per-k
-        phases, one (A + sM)⁻¹ and one L-twin factorization for all k
+        phases, one factorization of each fast-diagonal solve for all k
         (the L-twin eigh one Jacobi launch on (nk·B, D, D)), the start
         block X0 shared (or one per k, (nk, m, 3, N₁, N₂, N₃)) and
-        deflated per k, and a k-batched LOBPCG whose
-        every element apply is one launch for the nk·rows rows; every
-        output then has a leading k axis. The Chebyshev bounds and steps
-        do not depend on k and are shared."""
+        deflated per k, and a k-batched LOBPCG whose every element apply
+        is one launch for the nk·rows rows; every output then has a
+        leading k axis. Host setup (stencils, the multigrid hierarchy) is
+        done here."""
         from bravais_tpu_torch.eigen.lobpcg import (PROD_RR_TOL,
                                                     engine_scale_floor,
                                                     lobpcg)
+        from bravais_tpu_torch.eigen.precond import jacobi
 
-        if deflation == "gmg":
-            return self._sigma_shift_solve()
-        if deflation not in ("project", "project-cheby"):
-            raise ValueError(f"deflation must be 'project', 'project-cheby' "
-                             f"or 'gmg' (the ported values), got "
+        if deflation not in DEFLATIONS:
+            raise ValueError(f"deflation must be one of {DEFLATIONS}, got "
                              f"{deflation!r}")
+        if precond not in PRECONDS:
+            raise ValueError(f"precond must be one of {PRECONDS}, got "
+                             f"{precond!r}")
         if deflation == "project" and not self._coef_elem_invariant():
             raise ValueError(
                 "deflation='project' requires element-translation-"
@@ -786,87 +965,73 @@ class BlochCurlCurl:
         sfloor = engine_scale_floor(self.dtype)
         steps = None if cheby_target is None else self.cheby_steps(
             cheby_target)
-        self.fastdiag()       # host stencil extraction (A, M, L), cached
-        self.fastdiag_L()
+        project = deflation.startswith("project")
+        if deflation == "gmg":
+            self.qp_gmg()         # the hierarchy and its λmax bounds
+        else:
+            self.fastdiag_L()     # host stencil extraction, cached
+        if precond is not None:
+            self.fastdiag()
 
         def solve(X0, k, nev, tol, maxiter):
             ph = self.phases(k)
-            lsolve = self.fastdiag_L().solver([("L", 1.0)], k,
-                                              method="eigh")
-            pc = self.fd_precond(k)
-
-            if deflation == "project":
-                def proj(u):
-                    rhs = self.apply_GkH(self.apply_M(u, ph=ph), ph=ph)
-                    return self.apply_Gk(lsolve(rhs), ph=ph)
-            else:
-                def proj(u):
-                    return self.gradient_component_cheby(
-                        u, ph=ph, lsolve=lsolve, steps=steps)
-
-            def pcond(R):
-                z = pc(R)
-                return z - proj(z)
-
             batched = np.ndim(k) == 2
+            if deflation == "gmg":
+                gsolve = self.qp_gmg().solver(k)
+
+                def proj(u):
+                    return self.gradient_component_gmg(u, ph=ph,
+                                                       lsolve=gsolve)
+            else:
+                lsolve = self.fastdiag_L().solver([("L", 1.0)], k,
+                                                  method="eigh")
+                if deflation in ("cg", "project-cg"):
+                    def proj(u):
+                        return self.gradient_component(
+                            u, cg_iters=cg_iters, lprecond=lsolve, ph=ph)
+                elif deflation == "project-cheby":
+                    def proj(u):
+                        return self.gradient_component_cheby(
+                            u, ph=ph, lsolve=lsolve, steps=steps)
+                else:
+                    def proj(u):
+                        return self.gradient_component_fd(u, ph=ph,
+                                                          lsolve=lsolve)
+            if precond == "fastdiag":
+                pc = self.fd_precond(k)
+            elif precond == "fastdiag-cg":
+                pc = self.fd_precond_cg(k, inner_iters=3, ph=ph)
+            else:
+                pc = jacobi(self.diag_A(k), batched=batched)
+
             X0 = X0.to(self.dtype)
+            m = X0.shape[-5]                 # the block's rows, not nk
             if batched and X0.ndim == 5:
                 X0 = X0.expand((len(k),) + tuple(X0.shape))
-            return lobpcg(lambda x: self.apply_A(x, ph=ph),
-                          lambda x: self.apply_M(x, ph=ph),
-                          X0 - proj(X0), nev, maxiter=maxiter, tol=tol,
-                          precond=pcond, scale_floor=sfloor,
-                          AM=lambda x: self.apply_AM(x, ph=ph),
-                          kernel_project=proj, rr_tol=PROD_RR_TOL,
-                          batched=batched), None
+            X0p = X0 - proj(X0)
+            if project:
+                def pcond(R):
+                    z = pc(R)
+                    return z - proj(z)
 
-        solve.batched = True
-        return solve
+                return lobpcg(lambda x: self.apply_A(x, ph=ph),
+                              lambda x: self.apply_M(x, ph=ph), X0p, nev,
+                              maxiter=maxiter, tol=tol, precond=pcond,
+                              scale_floor=sfloor,
+                              AM=lambda x: self.apply_AM(x, ph=ph),
+                              kernel_project=proj, rr_tol=PROD_RR_TOL,
+                              batched=batched), None
 
-    def _sigma_shift_solve(self) -> Callable:
-        """The σ-shift solve (the reference's ``make_solve_fn(
-        deflation_gmg=True)``): LOBPCG on the pencil (Ã(k), M), Ã x =
-        A x + σ·M(P x), with A and M applied separately (no fused hook), P
-        the QPGMG gradient projector, σ = :attr:`sigma_shift`. Kernel
-        directions get eigenvalue σ, above the bands, and physical modes
-        (Gᴴ M u = 0) are left as they are, so leakage into the kernel
-        corrects itself instead of being projected out every iteration.
-        The start block is deflated once, X0 − P X0. The preconditioner is
-        Jacobi on diag A: what the reference's sweep resolves "auto" to for
-        a Maxwell operator (the port's sweep hands an engine no
-        preconditioner). The hierarchy is built here; each solve forms the
-        multigrid's state at its k once (``QPGMG.solver``).
-
-        Returns ``solve(X0, k, nev, tol, maxiter)`` as the other field
-        engines do; with a k table (nk, 3) one k-batched LOBPCG
-        (``solve.batched``)."""
-        from bravais_tpu_torch.eigen.lobpcg import (PROD_RR_TOL,
-                                                    engine_scale_floor,
-                                                    lobpcg)
-        from bravais_tpu_torch.eigen.precond import jacobi
-
-        sfloor = engine_scale_floor(self.dtype)
-        gmg = self.qp_gmg()       # the hierarchy and its λmax bounds, host
-        sigma = self.sigma_shift
-
-        def solve(X0, k, nev, tol, maxiter):
-            ph = self.phases(k)
-            lsolve = gmg.solver(k)
-            batched = np.ndim(k) == 2
-
-            def proj(u):
-                return self.gradient_component_gmg(u, ph=ph, lsolve=lsolve)
+            sig = (sigma if sigma is not None
+                   else self.fd_sigma(m) if precond is not None
+                   else self.sigma_shift)
 
             def A_shifted(x):
                 return (self.apply_A(x, ph=ph)
-                        + sigma * self.apply_M(proj(x), ph=ph))
+                        + sig * self.apply_M(proj(x), ph=ph))
 
-            X0 = X0.to(self.dtype)
-            if batched and X0.ndim == 5:
-                X0 = X0.expand((len(k),) + tuple(X0.shape))
-            return lobpcg(A_shifted, lambda x: self.apply_M(x, ph=ph),
-                          X0 - proj(X0), nev, maxiter=maxiter, tol=tol,
-                          precond=jacobi(self.diag_A(k), batched=batched),
+            return lobpcg(A_shifted, lambda x: self.apply_M(x, ph=ph), X0p,
+                          nev, maxiter=maxiter, tol=tol, precond=pc,
                           scale_floor=sfloor, rr_tol=PROD_RR_TOL,
                           batched=batched), None
 

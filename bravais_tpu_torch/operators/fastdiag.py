@@ -17,14 +17,13 @@ Three halves:
 * host (NumPy f64): stencil extraction from the k=0 host twins, with a
   disk cache (``_disk_cached``, ``extract_stencil``,
   ``extract_stencil_rect``, ``FastDiag.add_stencil``);
-* device (torch complex64): ``blocks``, ``to_blocks``, ``from_blocks``
-  and the block solver ``solver`` on the FastDiag's ``device``;
+* device (torch complex64): ``blocks``, ``to_blocks``, ``from_blocks``,
+  the block solver ``solver`` and the block apply ``matvec`` (a
+  cross-check of the stencils) on the FastDiag's ``device``;
 * host refine helpers (f64): ``blocks_np``, ``blocks_np_multi``,
-  ``candidate_blocks``, the spectral block solver ``solver_np`` and the
-  exact block refine of pencils without a nullspace (scalar Helmholtz)
-  ``spectral_refine_np``.
-
-``matvec`` (a test cross-check of the reference) is not ported.
+  ``candidate_blocks``, the spectral block solver ``solver_np`` (and its
+  one-shot ``solve_np``) and the exact block refine of pencils without a
+  nullspace (scalar Helmholtz) ``spectral_refine_np``.
 """
 
 from __future__ import annotations
@@ -364,6 +363,21 @@ class FastDiag:
 
         return solve
 
+    def matvec(self, terms: Sequence[Tuple[str, float]], k) -> Callable:
+        """u ↦ (Σ coeff·Op) u through the block factorization, on blocks
+        of fields (rows, *field_shape), or k-batched (nk, rows, ...) with
+        a k table: a cross-check of the stencils against the operator's
+        own apply."""
+        F = self._fwd_mats(self._theta(k))
+        T = self.blocks(terms, k)
+
+        def mv(u):
+            v = self.to_blocks(u, F)               # ([nk,] L, B, D)
+            y = (T @ v.movedim(-3, -1)).movedim(-1, -3)
+            return self.from_blocks(y, F).reshape(u.shape)
+
+        return mv
+
     # -- host (NumPy, f64) refine helpers ---------------------------------
 
     def _phase_weights_np(self, k: np.ndarray):
@@ -520,3 +534,8 @@ class FastDiag:
             return out.reshape(np.asarray(u).shape)
 
         return solve
+
+    def solve_np(self, terms: Sequence[Tuple[str, float]], u: np.ndarray,
+                 k: np.ndarray) -> np.ndarray:
+        """One-shot :meth:`solver_np` (a field or a block of fields)."""
+        return self.solver_np(terms, k)(u)

@@ -401,7 +401,8 @@ def main_batched(dev):
     lat, _, op = chip_smoke.fcc_problem(dev)
     kc = chip_smoke.nudged(lat, kpath(lat, npts=chip_smoke.BATCH_FIELD_NK,
                                       path=[["G", "X", "W", "L"]]).k_cart)
-    sweep = BandSweep(op, op.make_solve_fn(deflation="project"),
+    sweep = BandSweep(op, op.make_solve_fn(deflation="project",
+                                             precond="fastdiag"),
                       nev=chip_smoke.NEV, block=chip_smoke.BLOCK,
                       tol=chip_smoke.TOL, maxiter=chip_smoke.MAXITER,
                       device_tol=chip_smoke.FIELD_DEVICE_TOL)

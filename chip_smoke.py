@@ -211,13 +211,31 @@ median wall over its wall (below 1: the overlap gains):
    solve stalls as the reference's does, passes within them or with its
    f64 residual certificate ≥ 1e-2: never off them and reported
    converged) and the launches equal to the path's calls
-   (``expected_gmg_launches``);
+   (``expected_field_launches``);
    then the CLI's n < 3 route in a child process (``GMG_CLI_ARGS``, no
    ``--engine``): it logs ``# engine gmg``, exits 0, and its bands lie
    within 1e-5 of the port's complex128 CPU run of the same
    configuration. Its kernel shapes (h1 on every QPGMG level with a
    16-k table and the coarse assembly, nd's "A" and "M" halves) are
    held in ``[launched]`` and timed with the kernels.
+
+17. ``[cg]`` (after ``[gmg]``): the reference's other field-engine solves.
+   Config 3 at full width on its σ-shift default for varying ε,
+   ``make_solve_fn(deflation="cg", precond="fastdiag-cg",
+   cg_iters=adaptive_cg_iters())`` (the per-row CG gradient projector,
+   the inner-PCG preconditioner, σ = ``fd_sigma(m)``), through
+   ``run_warm`` and the k-batched ``run``; then one k-batched ``run``
+   each of config 3 on "project-cg" + "fastdiag-cg" and on "gmg" +
+   "fastdiag", and of FCC n=3 p=2 (nk=8, Γ–X–W–L) on ``make_solve_fn()``
+   ("cg" with Jacobi) and on "fastdiag" + "fastdiag". Each run with the
+   counts set to 0 just before and read just after: launches equal to
+   the path's calls (``expected_field_launches``; the CG's data-dependent
+   h1 applies counted by ``CGSteps``, its calls held against the
+   formula, each within ``cg_iters`` steps); config 3's k at ``[gmg]``'s
+   gates (``gmg_check``), FCC's within 1e-5 of the spectral engine's
+   bands of the same discretization, a cold k within them or flagged
+   by its f64 certificate (``cold_check``). The new shapes are held in
+   ``[launched]``.
 
 ``--four`` runs instead, on every card of a machine with at least four,
 what exists only across cards, each job under ``python -m
@@ -326,6 +344,17 @@ SCALE_NS = (8, 12)
 GMG_CLI_ARGS = ("--lattice", "FCC", "--problem", "maxwell", "--n", "2",
                 "--p", "2", "--path", "G,X,W,L", "--nk", "8", "--nev", "4")
 GMG_CLI_BAR = 1e-5
+# ``[cg]``: the element-invariant runs of the CG projector and the direct
+# fast-diagonal projector, FCC n=3 p=2 on Γ–X–W–L at nk=8, held against
+# the spectral engine's bands of the same discretization at GMG_CLI_BAR.
+# Only "cg" + Jacobi at the nudged Γ (index 0) may instead pass flagged, by
+# an f64 certificate 10x the runs' device stop or more: there the float32
+# σ-shift "cg" solve with Jacobi (σ = sigma_shift) can stop at its float32
+# floor, and the reference's does alike (nev 4 in 8 from the seeded block:
+# both stop at 64 iterations, certificates 1.29e-3 and 1.19e-3, ROADMAP
+# Reference caveats).
+CG_FCC_N, CG_FCC_P, CG_FCC_NK = 3, 2, 8
+CG_FCC_FLAG = 10 * FIELD_DEVICE_TOL
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and float32 flop/s
 # outside the tensor cores.
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -1301,7 +1330,7 @@ def dielectric(dev):
                             0.5 * lat.A.sum(axis=0), lat.A)
     op = BlochCurlCurl(sp, eps=eps, dtype=torch.complex64, device=dev)
     t0 = time.perf_counter()
-    solve = op.make_solve_fn()
+    solve = op.make_solve_fn(deflation="project-cheby", precond="fastdiag")
     log("diel", f"{sp.ndofs} dofs, {int(np.prod(sp.grid.shape))} elements, "
         f"q={sp.q}, Chebyshev steps {op.cheby_steps()}; host stencils "
         f"{time.perf_counter() - t0:.2f} s")
@@ -1690,8 +1719,9 @@ def phase_fcc_field(dev, setup, nd_shape, passes=FIELD_PASSES):
 
     lat, kc, op = setup
     t0 = time.perf_counter()
-    sweep = BandSweep(op, op.make_solve_fn(deflation="project"), nev=NEV,
-                      block=BLOCK, tol=TOL, maxiter=MAXITER,
+    sweep = BandSweep(op, op.make_solve_fn(deflation="project",
+                                           precond="fastdiag"),
+                      nev=NEV, block=BLOCK, tol=TOL, maxiter=MAXITER,
                       device_tol=FIELD_DEVICE_TOL)
     c = op.nd_consts()
     log("fcc-field", f"{op.space.ndofs} dofs, {c.nelem} elements, nd at "
@@ -1941,8 +1971,9 @@ def phase_batched(dev, head, setup3, rods, setup4):
     lat4, _, op4 = setup4
     kc4 = nudged(lat4, kpath(lat4, npts=BATCH_FIELD_NK,
                              path=[["G", "X", "W", "L"]]).k_cart)
-    sw4 = BandSweep(op4, op4.make_solve_fn(deflation="project"), nev=NEV,
-                    block=BLOCK, tol=TOL, maxiter=MAXITER,
+    sw4 = BandSweep(op4, op4.make_solve_fn(deflation="project",
+                                           precond="fastdiag"),
+                    nev=NEV, block=BLOCK, tol=TOL, maxiter=MAXITER,
                     device_tol=FIELD_DEVICE_TOL)
 
     analytic = analytic_check
@@ -2046,27 +2077,47 @@ def phase_batched(dev, head, setup3, rods, setup4):
     return launches
 
 
-def expected_gmg_launches(iterations, gmg):
-    """The kernel launches of σ-shift solves (``make_solve_fn(deflation=
-    "gmg")``), one per entry of ``iterations`` (a k's iterations, or a
-    k-batched solve's lockstep count i), with a = i + 2⌈i/16⌉ calls of
-    Ã (once an iteration on W, twice a 16-iteration segment on X and P):
-    nd "A" once per Ã; nd "M" three times per Ã (the projector's M u, the
-    shift's M P x, the pencil's M x) and twice more (the projector on X0,
-    the start whitening); h1 "A" ``gmg.launches_per_solve()`` per
-    projection (one on X0, one per Ã) and one for the coarse assembly;
-    Jacobi once an iteration (Rayleigh–Ritz) and once for the
-    whitening."""
+def expected_field_launches(iterations, deflation, precond, gmg=None):
+    """The kernel launches and projector calls of field-engine solves
+    (``make_solve_fn(deflation=..., precond=...)``), one per entry of
+    ``iterations`` (a k's iterations, or a k-batched solve's lockstep
+    count i), but the CG projector's h1 launches, which ``CGSteps`` counts.
+    The σ-shift deflations ("cg", "fastdiag", "gmg"): a = i + 2⌈i/16⌉
+    calls of Ã (once an iteration on W, twice a 16-iteration segment on X
+    and P), each one nd "A", three nd "M" (the projector's M u, the
+    shift's M P x, the pencil's M x) and one projection; two nd "M" more
+    (the projector on X0, the start whitening) and one projection more on
+    X0; Jacobi once an iteration (Rayleigh–Ritz), once for the whitening
+    and once for the L-twin eigh but with "gmg" (whose h1 launches are
+    ``gmg.launches_per_solve()`` a projection and one for the coarse
+    assembly). The projecting
+    deflations ("project-cg") as ``expected_launches``: 1 + 2i
+    projections (X0, the preconditioner's, the X/P deflation), nd "M" for
+    each and 1 + i more, the fused (A, M) hook i + 2⌈i/16⌉ times, Jacobi
+    i + 2. "fastdiag-cg" adds its 3 inner steps' fused (A, M) launches an
+    iteration (``make_solve_fn``'s ``inner_iters``). Returns (launches,
+    projector calls)."""
     out = dict.fromkeys(("nd M", "nd AM", "nd A", "h1 A", "h1 AM", "h1 M",
                          "jacobi"), 0)
-    per = gmg.launches_per_solve()
+    calls = 0
     for i in map(int, iterations):
         a = i + 2 * -(-i // 16)
-        out["nd A"] += a
-        out["nd M"] += 3 * a + 2
-        out["h1 A"] += 1 + per * (1 + a)
-        out["jacobi"] += i + 1
-    return out
+        if deflation.startswith("project"):
+            proj = 1 + 2 * i
+            out["nd M"] += proj + 1 + i
+            out["nd AM"] += a
+            out["jacobi"] += i + 2
+        else:
+            proj = 1 + a
+            out["nd A"] += a
+            out["nd M"] += 3 * a + 2
+            out["jacobi"] += i + 1 + (deflation != "gmg")
+        if deflation == "gmg":
+            out["h1 A"] += 1 + gmg.launches_per_solve() * proj
+        if precond == "fastdiag-cg":
+            out["nd AM"] += 3 * i
+        calls += proj
+    return out, calls
 
 
 def gmg_check(oracle, first):
@@ -2079,7 +2130,8 @@ def gmg_check(oracle, first):
     reference's engine alike from the same block: §6 of PERF.md), so a
     cold k passes within the bars or with its f64 residual certificate at
     ``DIEL_RES_BAR`` or above: it may miss, but must not be reported
-    converged while off the bars."""
+    converged while off the bars. ``first`` = 0 holds every k to the
+    bars (``[cg]``, whose config-3 solves converge cold)."""
     import numpy as np
 
     def check(res):
@@ -2112,7 +2164,7 @@ def phase_gmg(dev, setup3):
     set to 0 just before and read just after: ``[diel]``'s gates against
     the certify record at every warm-started k, a certificate that flags
     any cold-started k off them (``gmg_check``), the launches equal to the
-    path's calls (``expected_gmg_launches``). Then the CLI's n < 3 route in a child
+    path's calls (``expected_field_launches``). Then the CLI's n < 3 route in a child
     process as a user starts it (``GMG_CLI_ARGS``, no ``--engine``): it
     must say it picked gmg, exit 0, and give bands within ``GMG_CLI_BAR``
     of the port's own complex128 CPU run of the same configuration, made
@@ -2128,7 +2180,7 @@ def phase_gmg(dev, setup3):
 
     _, kc, op, _ = setup3
     t0 = time.perf_counter()
-    solve = op.make_solve_fn(deflation="gmg")
+    solve = op.make_solve_fn(deflation="gmg", precond=None)
     gmg = op.qp_gmg()
     coarse = gmg.levels[-1].op.space
     log("gmg", f"config 3 on the gmg engine: sigma {op.sigma_shift:.6g}, "
@@ -2153,7 +2205,7 @@ def phase_gmg(dev, setup3):
         got = _counts()
         its = (res.iterations.tolist() if tag == "run_warm"
                else [int(max(res.iterations))])
-        want = expected_gmg_launches(its, gmg)
+        want = expected_field_launches(its, "gmg", None, gmg=gmg)[0]
         text, ok = check(res)
         log("gmg", f"config 3 {tag}: {overlap(res)}, "
             f"{len(kc) / res.wall_s:.4f} eig/s, iterations per k "
@@ -2216,6 +2268,186 @@ def phase_gmg(dev, setup3):
     return launches
 
 
+class CGSteps:
+    """Counts the CG projector's work on ``op`` while entered: the calls of
+    ``gradient_component`` and the L applies (h1 "A") made inside them, two
+    a CG step. The steps are data-dependent (each row leaves the CG at its
+    own tolerance), so ``[cg]``'s expected h1 launches are the applies
+    counted here; its calls, and the steps of each, are held against the
+    path's formula and ``cg_iters``. Leaves the instance as it found it."""
+
+    def __init__(self, op):
+        self.op = op
+        self.calls = self.applies = self.most = 0
+
+    def __enter__(self):
+        op, inside = self.op, [False]
+        gc, lk = op.gradient_component, op.apply_Lk
+
+        def apply_Lk(*a, **kw):
+            self.applies += inside[0]
+            return lk(*a, **kw)
+
+        def gradient_component(*a, **kw):
+            before, inside[0] = self.applies, True
+            try:
+                return gc(*a, **kw)
+            finally:
+                inside[0] = False
+                self.calls += 1
+                self.most = max(self.most, (self.applies - before) // 2)
+
+        op.apply_Lk, op.gradient_component = apply_Lk, gradient_component
+        return self
+
+    def __exit__(self, *exc):
+        del self.op.apply_Lk, self.op.gradient_component
+
+
+def cold_check(ref, first):
+    """A sweep's gates against reference bands ``ref`` (nk, nev) (text,
+    ok): the k from index ``first`` on within ``GMG_CLI_BAR``
+    (``band_errors``) with refined residuals under ``DIEL_RES_BAR``; a k
+    before it within them or flagged by its f64 certificate
+    (≥ ``CG_FCC_FLAG``): never off the bar and reported converged."""
+    import numpy as np
+
+    def check(res):
+        resid = res.residuals.max(axis=1)
+        text, bad = [], []
+        for ki in range(len(ref)):
+            err = band_errors(res.eigenvalues[ki], ref[ki])
+            flagged = ki < first and resid[ki] >= CG_FCC_FLAG
+            ok = err < GMG_CLI_BAR and resid[ki] < DIEL_RES_BAR
+            text.append(f"{ki}: {err:.3e}" + (
+                f" (cold; not converged: certificate {resid[ki]:.3e})"
+                if flagged and not ok else ""))
+            if not (ok or flagged):
+                bad.append(ki)
+        return (f"bands off the reference (<{GMG_CLI_BAR:g}) "
+                + ", ".join(text),
+                not bad and res.eigenvalues.shape == ref.shape
+                and bool(np.all(np.isfinite(res.eigenvalues))))
+    return check
+
+
+def cg_fcc(dev):
+    """FCC n=3 p=2, element-invariant ε, Γ–X–W–L nk=8 with Γ nudged:
+    (k-points, operator, the spectral engine's bands of the same
+    discretization from one k-batched run on ``dev``)."""
+    import torch
+    from bravais_tpu_torch.bands.sweep import BandSweep
+    from bravais_tpu_torch.lattices import kpath, make_lattice
+    from bravais_tpu_torch.meshing.grid import PeriodicGrid
+    from bravais_tpu_torch.operators.curlcurl import BlochCurlCurl
+    from bravais_tpu_torch.spaces.nedelec import NedelecSpace
+
+    lat = make_lattice("FCC")
+    kc = nudged(lat, kpath(lat, npts=CG_FCC_NK,
+                           path=[["G", "X", "W", "L"]]).k_cart)
+    op = BlochCurlCurl(NedelecSpace.make(PeriodicGrid.make(lat, CG_FCC_N),
+                                         CG_FCC_P),
+                       dtype=torch.complex64, device=dev)
+    spec = BandSweep(op, op.make_spectral_solve_fn(), nev=NEV, block=BLOCK,
+                     tol=TOL, maxiter=MAXITER, device_tol=DEVICE_TOL).run(kc)
+    return kc, op, spec.eigenvalues
+
+
+def phase_cg(dev, setup3):
+    """``[cg]``: the reference's remaining field-engine solves. Config 3 at
+    full width (``[diel]``'s problem, k-points, device stop and maxiter,
+    then the f64 host refine) on ``make_solve_fn(deflation="cg",
+    precond="fastdiag-cg", cg_iters=adaptive_cg_iters())`` — the σ-shift
+    solve with the per-row CG projector and the inner-PCG preconditioner,
+    σ = ``fd_sigma(m)`` — through ``run_warm`` and the k-batched ``run``;
+    then one k-batched ``run`` each of config 3 on "project-cg" +
+    "fastdiag-cg" and on "gmg" + "fastdiag", and of FCC n=3 p=2 (nk=8) on
+    ``make_solve_fn()`` ("cg" with Jacobi) and on "fastdiag" + "fastdiag".
+    Every run with the counts set to 0 just before and read just after:
+    the launches equal to the path's calls (``expected_field_launches``,
+    the CG's h1 applies counted by ``CGSteps``), every CG within
+    ``cg_iters`` steps; config 3's gates as ``[gmg]``'s (``gmg_check``)
+    but at every k, cold or warm: within ``[diel]``'s bars with the
+    refined residual under ``DIEL_RES_BAR``; FCC's against the spectral
+    engine's bands of the same discretization (``cold_check``, 1e-5) at
+    every k, but for "cg" + Jacobi at the nudged Γ, which may instead be
+    flagged by its certificate (``CG_FCC_FLAG``). Returns {path:
+    launches}."""
+    import torch
+    from bravais_tpu_torch.bands.sweep import BandSweep
+
+    _, kc, op, _ = setup3
+    iters3 = op.adaptive_cg_iters()
+    oracle = diel_oracle(kc, op)
+    t0 = time.perf_counter()
+    kcf, opf, spec = cg_fcc(dev)
+    log("cg", f"config 3: contrast {op.coef_contrast():g}, cg_iters "
+        f"{iters3}, sigma fd_sigma({BLOCK}) {op.fd_sigma(BLOCK):.6g}; FCC "
+        f"n={CG_FCC_N} p={CG_FCC_P} nk={len(kcf)}: spectral bands in "
+        f"{time.perf_counter() - t0:.2f} s, sigma_shift "
+        f"{opf.sigma_shift:.6g}")
+    runs = [("config3", "run_warm", op, kc, "cg", "fastdiag-cg", iters3),
+            ("config3", "run", op, kc, "cg", "fastdiag-cg", iters3),
+            ("config3", "run", op, kc, "project-cg", "fastdiag-cg", iters3),
+            ("config3", "run", op, kc, "gmg", "fastdiag", None),
+            ("fcc", "run", opf, kcf, "cg", None, 25),
+            ("fcc", "run", opf, kcf, "fastdiag", "fastdiag", None)]
+    launches, failed = {}, []
+    for conf, tag, o, ks, defl, pc, iters in runs:
+        kw = {} if iters is None else {"cg_iters": iters}
+        sweep = BandSweep(o, o.make_solve_fn(deflation=defl, precond=pc,
+                                             **kw),
+                          nev=NEV, block=BLOCK, tol=TOL, maxiter=MAXITER,
+                          device_tol=(DIEL_DEVICE_TOL if conf == "config3"
+                                      else FIELD_DEVICE_TOL))
+        # Every k is held to the bars, the cold ones too, but FCC's
+        # "cg" + Jacobi at index 0, the nudged Γ (CG_FCC_FLAG).
+        first = 1 if (conf, defl, pc) == ("fcc", "cg", None) else 0
+        check = (gmg_check(oracle, first) if conf == "config3"
+                 else cold_check(spec, first))
+        path = f"{conf} {tag} {defl} {pc or 'jacobi'}"
+        log_path(f"cg {path}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with CGSteps(o) as cg:
+            _zero_counts()
+            res = (sweep.run_warm if tag == "run_warm" else sweep.run)(ks)
+            torch.cuda.synchronize()
+            got = _counts()
+        its = (res.iterations.tolist() if tag == "run_warm"
+               else [int(max(res.iterations))])
+        want, calls = expected_field_launches(
+            its, defl, pc, gmg=o.qp_gmg() if defl == "gmg" else None)
+        want["h1 A"] += cg.applies
+        uses_cg = defl in ("cg", "project-cg")
+        text, ok = check(res)
+        log("cg", f"{path}: {overlap(res)}, {len(ks) / res.wall_s:.4f} "
+            f"eig/s, iterations per k {res.iterations.tolist()} (mean "
+            f"{res.iterations.mean():.2f}" + ("" if tag == "run_warm" else
+                                              f", {its[0]} lockstep")
+            + f"), CG projections {cg.calls} (expected "
+            f"{calls if uses_cg else 0}), CG steps {cg.applies // 2} "
+            f"(most in one call {cg.most}), launches {got} (expected {want}),"
+            f" peak device memory {peak_mib(dev):.1f} MiB; {text}; max "
+            f"refined residual per k " + " ".join(
+                f"{r:.3e}" for r in res.residuals.max(axis=1)))
+        if not ok:
+            failed.append(f"{path}: a gate failed: {text}")
+        if (not (cg.calls == calls and 0 < cg.most <= iters
+                 and cg.applies % 2 == 0) if uses_cg else cg.calls):
+            failed.append(f"{path}: {cg.calls} CG projections (expected "
+                          f"{calls}), at most {cg.most} steps in one "
+                          f"(cg_iters {iters})")
+        if got != want:       # each formula's kernels are all > 0
+            failed.append(f"{path}: kernel launches {got} != the path's "
+                          f"calls {want}")
+        launches[path.replace(" ", "_")] = got
+    log_path(None)
+    if failed:
+        raise RuntimeError("cg: " + "; ".join(failed))
+    return launches
+
+
 def dense_bands_nd(sp, eps, k64, nev, dev, AM=None):
     """The ``nev`` lowest bands of the Nédélec discretization ``sp`` at
     ``k64`` by a dense complex128 solve with the curl-curl kernel removed
@@ -2273,7 +2505,9 @@ def phase_certify(dev):
         eps = dielectric_sphere(eps_in, 1.0, 0.25, 0.5 * lat.A.sum(axis=0),
                                 lat.A, 0.0)
         op = BlochCurlCurl(sp, eps=eps, dtype=torch.complex64, device=dev)
-        sweep = BandSweep(op, op.make_solve_fn(), nev=CERT_NEV,
+        sweep = BandSweep(op, op.make_solve_fn(deflation="project-cheby",
+                                               precond="fastdiag"),
+                          nev=CERT_NEV,
                           block=CERT_BLOCK, tol=TOL, maxiter=MAXITER,
                           device_tol=DIEL_DEVICE_TOL)
         log_path(f"certify eps {eps_in:g}")
@@ -3147,6 +3381,7 @@ def main():
     c5 = phase_config5(dev)
     batched = phase_batched(dev, head, setup3, rods, setup4)
     gmg = phase_gmg(dev, setup3)
+    cg = phase_cg(dev, setup3)
     cert = phase_certify(dev)
     log_path(None)
     cert_prod = phase_certify_prod(dev)
@@ -3158,7 +3393,7 @@ def main():
     phase_one_operation(dev, setup3[2], setup4[2])
     new_runs = [(key, rec) for key, rec in LAUNCHED.items()
                 if rec["path"].endswith(f"chunk={BATCH_CHUNK}")
-                or rec["path"].startswith(("certify", "gmg"))]
+                or rec["path"].startswith(("certify", "gmg", "cg"))]
     times = kernel_times(dev, setup3[2], rods, op4=setup4[2], op5=op5,
                          batched=True, logged=new_runs)
     log_times(times)
@@ -3195,6 +3430,7 @@ def main():
         **{f"batched_{path}": got["jacobi"] for path, got in batched.items()},
         **{f"certify_eps{e:g}": got["jacobi"] for e, got in cert.items()},
         **{f"gmg_{path}": got["jacobi"] for path, got in gmg.items()},
+        **{f"cg_{path}": got["jacobi"] for path, got in cg.items()},
         "certify_prod": cert_prod["jacobi"], "scale": scale,
         "scale_dd_model": scale_dd.get("jacobi", 0)}
     # [shard]: each rank's launches on each sharded path, and the shapes
@@ -3226,6 +3462,7 @@ def main():
                             for e, got in cert.items()),
                           *((f"gmg_{path}", got)
                             for path, got in gmg.items()),
+                          *((f"cg_{path}", got) for path, got in cg.items()),
                           ("certify_prod", cert_prod),
                           ("scale_dd_model", scale_dd),
                           *((key, got) for key, got in shard_runs
@@ -3246,8 +3483,9 @@ def main():
            for path in ("config3", "config3_chunk4", "config2")},
         **{f"certify_eps{e:g}": {w: got[f"h1 {w}"] for w in ("A", "AM", "M")}
            for e, got in cert.items()},
-        **{f"gmg_{path}": {w: got[f"h1 {w}"] for w in ("A", "AM", "M")}
-           for path, got in gmg.items()},
+        **{f"{tag}_{path}": {w: got[f"h1 {w}"] for w in ("A", "AM", "M")}
+           for tag, runs in (("gmg", gmg), ("cg", cg))
+           for path, got in runs.items()},
         "certify_prod": {w: cert_prod[f"h1 {w}"] for w in ("A", "AM", "M")},
         **{key: {w: got.get(f"h1 {w}", 0) for w in ("A", "AM", "M")}
            for key, got in shard_runs
@@ -3255,7 +3493,8 @@ def main():
     h1_rec["launches"] = diel["h1"] + sum(
         v for path in (rods2d, te, c5["field"], batched["config3"],
                        batched["config3_chunk4"], batched["config2"],
-                       *cert.values(), *gmg.values(), cert_prod)
+                       *cert.values(), *gmg.values(), *cg.values(),
+                       cert_prod)
         for key, v in path.items() if key.startswith("h1")) + sum(
         v for _, got in shard_runs for key, v in got.items()
         if key.startswith("h1"))

@@ -299,7 +299,7 @@ def test_batched_run_matches_loop_and_reference(fcc, cub, engine):
         solve_r = ref.make_solve_fn(engine="spectral")
         dtol = 1e-3
     else:
-        solve = op.make_solve_fn(deflation=engine)
+        solve = op.make_solve_fn(deflation=engine, precond="fastdiag")
         solve_r = ref.make_solve_fn(deflation=engine, precond="fastdiag")
         dtol = 1e-4
     kw = dict(nev=NEV, block=BLOCK, tol=1e-6, maxiter=200, device_tol=dtol)

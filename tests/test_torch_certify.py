@@ -96,8 +96,9 @@ def test_dielectric_f32_refine_certified(eps_in):
     op32 = BlochCurlCurl(sp, eps=eps, device="cpu")
     assert not op32._coef_elem_invariant()
     k = np.asarray(lat.k_cart((0.5, 0.0, 0.0)), np.float32)
-    sweep = BandSweep(op32, op32.make_solve_fn(), nev=5, block=9, tol=1e-6,
-                      maxiter=250, device_tol=1e-4)
+    solve = op32.make_solve_fn(deflation="project-cheby", precond="fastdiag")
+    sweep = BandSweep(op32, solve, nev=5, block=9, tol=1e-6, maxiter=250,
+                      device_tol=1e-4)
     assert sweep.refine and sweep.tol == 1e-4
     res = sweep.run(np.asarray([k]))
 

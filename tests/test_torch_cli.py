@@ -200,9 +200,10 @@ class _Op:
 
 
 SPECTRAL = ("make_spectral_solve_fn", {})
-PROJECT = ("make_solve_fn", {"deflation": "project"})
-CHEBY = ("make_solve_fn", {"deflation": "project-cheby"})
-GMG = ("make_solve_fn", {"deflation": "gmg"})
+PROJECT = ("make_solve_fn", {"deflation": "project", "precond": "fastdiag"})
+CHEBY = ("make_solve_fn", {"deflation": "project-cheby",
+                           "precond": "fastdiag"})
+GMG = ("make_solve_fn", {"deflation": "gmg", "precond": None})
 
 
 @pytest.mark.parametrize("problem,engine,n,invariant,want", [

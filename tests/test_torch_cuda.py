@@ -346,18 +346,20 @@ def test_batched_run_on_cuda_matches_cpu(cuda, engine):
 
 
 @pytest.mark.parametrize("engine", ["spectral", "project", "project-cheby",
-                                    "gmg", "sigma-gmg"])
+                                    "gmg", "sigma-gmg", "cg", "project-cg"])
 def test_batched_engines_on_cuda_match_cpu(cuda, engine):
     """Each engine that ``run`` now batches, three k in one k-batched
     solve on the card and on the CPU: the FCC spectral and "project"
-    field engines (n=3 p=2), config 3's sphere on "project-cheby" and on
-    the σ-shift "gmg" deflation (n=3 p=2), config 2's rods with GMG (n=8
+    field engines (n=3 p=2), config 3's sphere on "project-cheby", on
+    the σ-shift "gmg" deflation, on the σ-shift "cg" and on "project-cg",
+    the last two with the "fastdiag-cg" preconditioner (n=3 p=2),
+    config 2's rods with GMG (n=8
     p=2). The same iterations per k (±1), refined bands within 1e-6
     relative (to 1e-2 of the k's top band below it), and on the card
     every element apply of the batch is one launch for the three k: the
     field engines' nd launches equal those of one solve at the batch's
-    iteration count, and the σ-shift's h1 launches those of its QPGMG
-    projections."""
+    iteration count, the σ-shift's h1 launches those of its QPGMG
+    projections, and the CG projector's h1 launches its L applies."""
     out = {}
     for dev in ("cpu", cuda):
         if engine == "gmg":
@@ -368,7 +370,8 @@ def test_batched_engines_on_cuda_match_cpu(cuda, engine):
             sweep = BandSweep(op, nev=4, block=8, tol=1e-6, maxiter=400,
                               device_tol=1e-4)
         else:
-            sphere = engine in ("project-cheby", "sigma-gmg")
+            sphere = engine in ("project-cheby", "sigma-gmg", "cg",
+                                "project-cg")
             if sphere:
                 op = _sphere_op(3, 2, dev)
             else:
@@ -378,16 +381,25 @@ def test_batched_engines_on_cuda_match_cpu(cuda, engine):
             ks = np.asarray([2e-2 * lat.B[0], lat.point_cart("X"),
                              lat.point_cart("M" if sphere else "W")])
             solve = (op.make_spectral_solve_fn() if engine == "spectral"
-                     else op.make_solve_fn(deflation="gmg")
+                     else op.make_solve_fn(deflation="gmg", precond=None)
                      if engine == "sigma-gmg"
-                     else op.make_solve_fn(deflation=engine))
+                     else op.make_solve_fn(deflation=engine,
+                                           precond="fastdiag-cg",
+                                           cg_iters=op.adaptive_cg_iters())
+                     if engine in ("cg", "project-cg")
+                     else op.make_solve_fn(deflation=engine,
+                                           precond="fastdiag"))
             sweep = BandSweep(op, solve, nev=4, block=8, tol=1e-6,
                               maxiter=200,
                               device_tol=1e-3 if engine == "spectral"
                               else 1e-4)
+        cg = engine in ("cg", "project-cg")
+        applies = _count_Lk(op) if cg else None
         nd0, h10 = nd_apply.launches, h1_apply.launches
         out[str(dev)] = (sweep.run(ks), nd_apply.launches - nd0,
                          h1_apply.launches - h10)
+        if cg:
+            del op.apply_Lk
     (rc, _, _), (rg, nd, h1) = out["cpu"], out[str(cuda)]
     assert np.all(np.abs(rg.iterations - rc.iterations) <= 1)
     top = np.abs(rc.eigenvalues).max(axis=1, keepdims=True)
@@ -412,8 +424,74 @@ def test_batched_engines_on_cuda_match_cpu(cuda, engine):
         per = op.qp_gmg().launches_per_solve()
         assert nd == a + 3 * a + 2
         assert h1 == 1 + per * (1 + a)
+    elif engine in ("cg", "project-cg"):
+        # as "sigma-gmg" and "project-cheby", and the inner PCG's three
+        # fused (A, M) an iteration; each CG step two h1 "A" (L p and the
+        # true residual), as the card's run counted them
+        a = it + 2 * -(-it // 16)
+        pcg = 3 * it
+        if engine == "cg":
+            assert nd == a + 3 * a + 2 + pcg
+        else:
+            assert nd == (1 + 2 * it) + (1 + it) + a + pcg
+        assert h1 == applies[0] > 0 and h1 % 2 == 0
     else:
         assert nd == h1 == 0
+
+
+def _count_Lk(op):
+    """Counts ``op.apply_Lk`` calls (an instance wrapper the caller
+    deletes): [calls]."""
+    calls, orig = [0], op.apply_Lk
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return orig(*a, **kw)
+    op.apply_Lk = counted
+    return calls
+
+
+@pytest.mark.parametrize("table", [False, True], ids=["one-k", "k-table"])
+def test_cg_projector_and_inner_pcg_on_cuda_match_cpu(cuda, table):
+    """Config 3's operator (CUB ε = 13 sphere, n=6 p=3): the CG gradient
+    projector (``adaptive_cg_iters()`` steps, the L-twin's eigh solve as
+    preconditioner) and the inner-PCG preconditioner (3 steps) on a
+    16-row block at one k, or on (4, 16)-row blocks with a table of 4 k,
+    on the card against the CPU's plain path: within 1e-4 relative
+    (float32 roundoff through the CG's steps); on the card each CG step
+    two h1 "A" launches, one nd "M" a projection (M u), three fused nd
+    (A, M) for the inner PCG."""
+    lat = make_lattice("CUB")
+    kfr = [(0.3, 0.2, 0.1), (0.5, 0.0, 0.0), (0.5, 0.5, 0.0),
+           (0.1, 0.25, 0.4)]
+    k = (np.asarray([lat.k_cart(f) for f in kfr]) if table
+         else lat.k_cart(kfr[0]))
+    lead = (4, 16) if table else (16,)
+    out = {}
+    for dev in ("cpu", cuda):
+        op = _sphere_op(6, 3, dev)
+        rng = np.random.default_rng(9)
+        shp = lead + op.space.field_shape
+        u = torch.as_tensor((rng.standard_normal(shp)
+                             + 1j * rng.standard_normal(shp)
+                             ).astype(np.complex64), device=dev)
+        lp = op.fastdiag_L().solver([("L", 1.0)], k, method="eigh")
+        applies = _count_Lk(op)
+        h1a, ndm = h1_apply.launches_by_want["A"], nd_apply.launches_by_mode
+        m0, am0 = ndm["M"], ndm["AM"]
+        g = op.gradient_component(u, k, cg_iters=op.adaptive_cg_iters(),
+                                  lprecond=lp)
+        pc = op.fd_precond_cg(k, inner_iters=3)(u)
+        out[str(dev)] = (g, pc, applies[0],
+                         h1_apply.launches_by_want["A"] - h1a,
+                         ndm["M"] - m0, ndm["AM"] - am0)
+        del op.apply_Lk
+    g_c, pc_c = out["cpu"][:2]
+    g_g, pc_g, applies, h1, m, am = out[str(cuda)]
+    assert 0 < applies <= 2 * 11 and applies % 2 == 0
+    assert (h1, m, am) == (applies, 1, 3)
+    assert _rel(g_g.cpu(), g_c) < 1e-4
+    assert _rel(pc_g.cpu(), pc_c) < 1e-4
 
 
 @pytest.mark.parametrize("table", [False, True], ids=["one-k", "k-table"])
@@ -482,8 +560,10 @@ def test_field_sweep_on_cuda_matches_cpu(cuda):
     out = {}
     for dev in ("cpu", cuda):
         op = _sphere_op(4, 2, dev)
-        sweep = BandSweep(op, op.make_solve_fn(), nev=5, block=9, tol=1e-6,
-                          maxiter=250, device_tol=1e-4)
+        solve = op.make_solve_fn(deflation="project-cheby",
+                                 precond="fastdiag")
+        sweep = BandSweep(op, solve, nev=5, block=9, tol=1e-6, maxiter=250,
+                          device_tol=1e-4)
         jacobi_cuda.launches = nd_apply.launches = h1_apply.launches = 0
         res = sweep.run_warm(kc)
         out[str(dev)] = (res, (nd_apply.launches, h1_apply.launches,
@@ -647,8 +727,10 @@ def test_overlapped_run_warm_on_cuda_equals_serial(cuda, engine,
     else:
         lat = make_lattice("CUB")
         op = _sphere_op(4, 2, cuda)
-        sweep = BandSweep(op, op.make_solve_fn(), nev=5, block=9, tol=1e-6,
-                          maxiter=250, device_tol=1e-4, keep_vectors=True)
+        solve = op.make_solve_fn(deflation="project-cheby",
+                                 precond="fastdiag")
+        sweep = BandSweep(op, solve, nev=5, block=9, tol=1e-6, maxiter=250,
+                          device_tol=1e-4, keep_vectors=True)
         kc = np.asarray([lat.k_cart(f) for f in ((0.25, 0.0, 0.0),
                                                  (0.5, 0.0, 0.0),
                                                  (0.5, 0.25, 0.0))])

@@ -87,8 +87,9 @@ def ref_sweep(pair):
 @pytest.fixture(scope="module")
 def port_sweep(pair):
     _, op, _ = pair
-    return BandSweep(op, op.make_solve_fn(), nev=NEV, block=M, tol=1e-6,
-                     maxiter=250, device_tol=DEVICE_TOL)
+    solve = op.make_solve_fn(deflation="project-cheby", precond="fastdiag")
+    return BandSweep(op, solve, nev=NEV, block=M, tol=1e-6, maxiter=250,
+                     device_tol=DEVICE_TOL)
 
 
 def test_port_coefficients_and_stencils_match_reference(pair):

@@ -110,6 +110,7 @@ def test_import_keeps_jax_out():
             "bravais_tpu_torch.cli.scale_demo, "
             "bravais_tpu_torch.operators.coefficients, "
             "bravais_tpu_torch.operators.curlcurl, "
+            "bravais_tpu_torch.operators.fastdiag, "
             "bravais_tpu_torch.operators.qplaplace, "
             "bravais_tpu_torch.operators.helmholtz, "
             "bravais_tpu_torch.operators.dense, "

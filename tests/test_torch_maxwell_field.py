@@ -13,7 +13,8 @@ the Maxwell and QP-Laplace diagonals, and the built-in sweep on a
 * (b') at bench.py's field stop 1e-4 the error left in the refined
   bands (against a 1e-5 sweep) is the reference's, within a factor 2,
   from the same start block;
-* (c) "project" with an ε-sphere and an unported deflation name raise;
+* (c) every deflation and outer preconditioner builds, but "project"
+  with an ε-sphere, an unknown deflation and an unknown precond raise;
 * (d) ``cheby_steps(t)`` equals the reference's, and a deep projector
   (``cheby_target=1e-3``) agrees with the production one;
 * (e) the diagonals against the reference's in float64, to 1e-12;
@@ -87,7 +88,7 @@ def test_project_solve_matches_reference(name, kfrac):
     op, ref = _ops(name)
     k = np.asarray(make_lattice(name).k_cart(kfrac), np.float32)
     X0 = _start(op.space.field_shape, M)
-    r, support = op.make_solve_fn(deflation="project")(
+    r, support = op.make_solve_fn(deflation="project", precond="fastdiag")(
         torch.as_tensor(X0), k.astype(np.float64), NEV, DEVICE_TOL, 250)
     assert support is None
     rr = ref.make_solve_fn(deflation="project", precond="fastdiag")(
@@ -110,8 +111,9 @@ def test_project_warm_sweep_analytic():
     lat = make_lattice("FCC")
     kc = kpath(lat, npts=5, path=[["G", "X", "W", "L"]]).k_cart[:3].copy()
     kc[0] = 2e-2 * lat.B[0]
-    sweep = BandSweep(op, op.make_solve_fn(deflation="project"), nev=NEV,
-                      block=M, tol=1e-6, maxiter=250, device_tol=DEVICE_TOL)
+    solve = op.make_solve_fn(deflation="project", precond="fastdiag")
+    sweep = BandSweep(op, solve, nev=NEV, block=M, tol=1e-6, maxiter=250,
+                      device_tol=DEVICE_TOL)
     res = sweep.run_warm(kc)
     k32 = kc.astype(np.float32).astype(np.float64)
     for i, k in enumerate(k32):
@@ -134,7 +136,8 @@ def test_bench_field_stop_error_matches_reference():
     kc[0] = 2e-2 * lat.B[0]
     op, ref = _ops("FCC", n=4, p=4)
     kw = dict(nev=10, block=16, tol=1e-6, maxiter=250)
-    tight, loose = (BandSweep(op, op.make_solve_fn(deflation="project"),
+    tight, loose = (BandSweep(op, op.make_solve_fn(deflation="project",
+                                                   precond="fastdiag"),
                               device_tol=t, **kw).run_warm(kc)
                     for t in (1e-5, 1e-4))
     loose_r = SweepRef(ref, solve_fn=ref.make_solve_fn(
@@ -153,15 +156,21 @@ def test_bench_field_stop_error_matches_reference():
     assert np.all(np.maximum(err / err_r, err_r / err) < 2.0), (err, err_r)
 
 
-def test_project_refuses_varying_eps_and_unported_names():
+def test_project_refuses_varying_eps_and_unknown_names():
+    """Every deflation the reference offers builds with every outer
+    preconditioner, but "project" with varying ε (the reference's own
+    refusal); an unknown deflation or precond raises."""
     lat = make_lattice("CUB")
     op, _ = _ops("CUB", eps=_sphere(lat))
     with pytest.raises(ValueError, match="element-translation-invariant"):
         op.make_solve_fn(deflation="project")
-    for name in ("cg", "fastdiag", "project-cg"):
-        with pytest.raises(ValueError, match="'project', 'project-cheby' "
-                                             "or 'gmg'"):
-            op.make_solve_fn(deflation=name)
+    for name in ("cg", "gmg", "fastdiag", "project-cg", "project-cheby"):
+        for pc in (None, "fastdiag", "fastdiag-cg"):
+            assert op.make_solve_fn(deflation=name, precond=pc).batched
+    with pytest.raises(ValueError, match="deflation must be one of"):
+        op.make_solve_fn(deflation="lanczos")
+    with pytest.raises(ValueError, match="precond must be one of"):
+        op.make_solve_fn(precond="jacobi")
 
 
 @pytest.mark.parametrize("target", [1e-6, 1e-3, 0.15, 0.3])
@@ -185,7 +194,8 @@ def test_cheby_target_override_deepens_and_agrees():
     X0 = torch.as_tensor((rng.standard_normal(shp)
                           + 1j * rng.standard_normal(shp)
                           ).astype(np.complex64))
-    lam = [op.make_solve_fn(cheby_target=t)(X0, k, 8, 1e-5, 250)[0]
+    lam = [op.make_solve_fn(deflation="project-cheby", precond="fastdiag",
+                            cheby_target=t)(X0, k, 8, 1e-5, 250)[0]
            .eigenvalues.numpy() for t in (None, 1e-3)]
     assert np.max(np.abs(lam[1] - lam[0]) / np.abs(lam[0])) < 1e-4, lam
 

@@ -68,7 +68,8 @@ def _diel(keep_vectors=False):
     sp = NedelecSpace.make(PeriodicGrid.make(lat, 3), 2)
     eps = dielectric_sphere(13.0, 1.0, 0.25, 0.5 * lat.A.sum(axis=0), lat.A)
     op = BlochCurlCurl(sp, eps=eps, device="cpu")
-    sweep = BandSweep(op, op.make_solve_fn(), nev=NEV, block=M, tol=1e-6,
+    solve = op.make_solve_fn(deflation="project-cheby", precond="fastdiag")
+    sweep = BandSweep(op, solve, nev=NEV, block=M, tol=1e-6,
                       maxiter=250, device_tol=1e-4,
                       keep_vectors=keep_vectors)
     return kpath(lat, npts=3, path=[["X", "M", "R"]]).k_cart, sweep

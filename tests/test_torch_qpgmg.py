@@ -134,8 +134,8 @@ def fcc():
     op, ref = _pair("FCC", 2, 2)
     lat = make_lattice("FCC")
     ks = np.stack([lat.k_cart((0.3, 0.1, 0.2)), 2e-2 * lat.B[0]])
-    sweep = BandSweep(op, op.make_solve_fn(deflation="gmg"), nev=NEV,
-                      block=M, tol=TOL, maxiter=MAXITER)
+    sweep = BandSweep(op, op.make_solve_fn(deflation="gmg", precond=None),
+                      nev=NEV, block=M, tol=TOL, maxiter=MAXITER)
     solve_r = ref.make_solve_fn(deflation_gmg=True)
     run_r = jax.jit(lambda X0, k: solve_r(
         ref, X0, k, NEV, TOL, MAXITER, jacobi_ref(ref.diag_A(k))))
