@@ -2,7 +2,8 @@
 
 Port of ``BandSweep`` (the refine and ``device_tol`` rules, the
 preconditioner choice, the built-in solve, ``_refine_host``, ``run_warm``,
-``run`` and ``run_warm_sharded``) from ``bravais_tpu/bands/sweep.py``.
+``run_warm_chain``, ``run`` and ``run_warm_sharded``) from
+``bravais_tpu/bands/sweep.py``.
 Each k is solved on the device, then refined in f64 on the host. The
 solve is an engine's ``solve_fn`` or, without one, the built-in LOBPCG
 on the operator's matrix-free ``apply_A``/``apply_M`` with its fused
@@ -58,8 +59,13 @@ segments, each warm-started from its own previous block, one k-batched
 solve per path position over the rank's segments (without a mesh: every
 segment on one device). Each chunk's (or position's) rows are gathered
 from every rank in k order and written by rank 0; every rank returns the
-same ``SweepResult``. The chain modes (``warm-chain``, ``warm-seg``) and
-the near-Γ loose stop are not ported.
+same ``SweepResult``.
+
+The reference's other sweep schedules: ``run_warm_chain`` (the warm
+sweep in chains of k whose preconditioners or whole setups an engine can
+build for the chain at once), ``restart_tol`` (``run``'s two-phase
+k-batched solve) and ``near_gamma_tol`` (``run_warm``'s looser device
+stop near Γ).
 """
 
 from __future__ import annotations
@@ -126,8 +132,21 @@ class _Fetched(NamedTuple):
     its: np.ndarray
     res: np.ndarray
     sup: Optional[np.ndarray]
-    X: "np.ndarray | torch.Tensor | None"
+    X: "np.ndarray | torch.Tensor | list | None"
     vecs: Optional[np.ndarray]
+
+
+def _joined(parts) -> _Fetched:
+    """Single solves' fetched outputs (each with a k axis of length 1)
+    as one, k after k: host arrays concatenated, device blocks (a spectral
+    solve's, read only by a refine that falls back) listed."""
+    def join(xs):
+        if xs[0] is None:
+            return None
+        if isinstance(xs[0], np.ndarray):
+            return np.concatenate(xs)
+        return [x[0] for x in xs]
+    return _Fetched(*(join(list(f)) for f in zip(*parts)))
 
 
 class BandSweep:
@@ -154,13 +173,28 @@ class BandSweep:
     seed       : numpy seed of the start block.
     keep_vectors : return each k's eigenvector rows in
                  ``SweepResult.eigenvectors`` (for mode dumps).
+    restart_tol : ``run`` only: each chunk's k-batched solve stops at this
+                 residual, then restarts from its blocks down to the
+                 device stop (two phases; a k's iterations are their
+                 sum). A batch runs until its slowest k is done, so the
+                 restart bounds a straggler's first phase at the loose
+                 stop. None (the default): one phase.
+    near_gamma_tol, near_gamma_norm : ``run_warm`` only, with the refine
+                 on: a k with |k| < ``near_gamma_norm`` stops at
+                 max(``near_gamma_tol``, device stop). Near Γ the float32
+                 deflation's floor lies above the field engine's device
+                 stop, and the f64 refine recovers from the looser stop.
+                 Off by default (None, or a zero norm).
     """
 
     def __init__(self, operator, solve_fn: Optional[Callable] = None,
                  nev: int = 10, block: Optional[int] = None,
                  tol: float = 1e-6, maxiter: int = 200,
                  device_tol: Optional[float] = None, precond="auto",
-                 seed: int = SEED, keep_vectors: bool = False):
+                 seed: int = SEED, keep_vectors: bool = False,
+                 restart_tol: Optional[float] = None,
+                 near_gamma_tol: Optional[float] = None,
+                 near_gamma_norm: float = 0.0):
         self.op = operator
         self.seed = seed
         self.keep_vectors = keep_vectors
@@ -179,10 +213,25 @@ class BandSweep:
         # loop only has to identify the support blocks.
         if device_tol is not None and self.refine:
             self.tol = device_tol
+        self.restart_tol = restart_tol
+        self.near_gamma_tol = near_gamma_tol if self.refine else None
+        self.near_gamma_norm = near_gamma_norm
+        #: the preconditioner mode the last ``run_warm_chain`` ran, after
+        #: the engine's downgrades
+        self.chain_mode = None
         self.precond = precond
         self.gmg = None
         if solve_fn is None:
             self._resolve_precond()
+
+    def _tol_for_k(self, k) -> float:
+        """``run_warm``'s device stop at k: max(``near_gamma_tol``, the
+        device stop) inside the ball |k| < ``near_gamma_norm``, the device
+        stop elsewhere."""
+        if (self.near_gamma_tol is not None and self.near_gamma_norm > 0
+                and float(np.linalg.norm(k)) < self.near_gamma_norm):
+            return max(self.near_gamma_tol, self.tol)
+        return self.tol
 
     def _resolve_precond(self):
         """Resolve ``precond="auto"`` and build the GMG hierarchy now, not
@@ -415,17 +464,89 @@ class BandSweep:
         eigenvector block, which stays on the device; k's host refine
         runs while k+1 is solved. With ``writer``, every finished k is
         written at once under its global index ``k_index[i]`` (default
-        i)."""
+        i). Each k stops at ``_tol_for_k`` (the near-Γ loose stop)."""
         k_cart = self._rounded(k_cart)
 
         def solves(X):
             for i, k in enumerate(k_cart):
-                r, support = self.solve_fn(X, k, self.nev, self.tol,
-                                           self.maxiter)
+                r, support = self.solve_fn(X, k, self.nev,
+                                           self._tol_for_k(k), self.maxiter)
                 X = r.eigenvectors
                 yield [i], k[None], self._fetch(r, support, batched=False)
         return self._pipelined(solves(self._x0()), len(k_cart), writer,
                                k_index)
+
+    def run_warm_chain(self, k_cart: np.ndarray, chain: int = 4,
+                       writer=None, k_index: Optional[np.ndarray] = None,
+                       reuse_precond: bool = False,
+                       precond: str = "per-k") -> SweepResult:
+        """``run_warm`` in chains of ``chain`` consecutive k (the
+        reference's ``run_warm_chain``): every k warm-started from the
+        previous k's block, across chains too, each k solved at the device
+        stop. A chain is one step of the pipeline: its k are refined on
+        the worker thread while the next chain is solved, and written
+        through ``writer`` (under ``k_index``) chain by chain.
+
+        ``precond`` says where the solve's per-k setup comes from:
+
+        * "per-k": each solve builds its own (``run_warm``'s solves);
+        * "chain-mid" (also ``reuse_precond=True``): one
+          ``solve_fn.build_pc`` at the chain's middle k, reused by the
+          chain's solves (stale by up to chain/2 k);
+        * "batched": one ``build_pc`` on the chain's k table, each solve
+          handed its own k's;
+        * "batched-setup": one ``solve_fn.build_setup`` (blocks,
+          preconditioner, projector factor) on the chain's k table, each
+          solve handed its own k's.
+
+        An engine without ``build_setup`` runs "batched-setup" as
+        "batched", one without ``build_pc`` every mode as "per-k" (the
+        spectral Maxwell engine has both); ``chain_mode`` records the mode
+        that ran. Raises ``ValueError`` for an unknown mode. A ragged last
+        chain holds fewer k (the reference pads it with its last k);
+        chain-mid then builds at its middle k of the padded chain."""
+        if reuse_precond and precond == "per-k":
+            precond = "chain-mid"
+        if precond not in ("per-k", "chain-mid", "batched",
+                           "batched-setup"):
+            raise ValueError(f"unknown precond mode {precond!r}")
+        build_pc = getattr(self.solve_fn, "build_pc", None)
+        build_setup = getattr(self.solve_fn, "build_setup", None)
+        if precond == "batched-setup" and build_setup is None:
+            precond = "batched"
+        if build_pc is None:
+            precond = "per-k"
+        self.chain_mode = precond
+        k_cart = self._rounded(k_cart)
+        nk = len(k_cart)
+        chain = max(1, min(int(chain), nk))
+
+        def hooks(ks):
+            """The keywords of each of the chain's solves."""
+            if precond == "chain-mid":
+                pc = build_pc(ks[min(chain // 2, len(ks) - 1)])
+                return [{"pc": pc}] * len(ks)
+            if precond == "batched":
+                pcs = build_pc(ks)
+                return [{"pc": pcs[j]} for j in range(len(ks))]
+            if precond == "batched-setup":
+                su = build_setup(ks)
+                return [{"setup": tuple(t[j] for t in su)}
+                        for j in range(len(ks))]
+            return [{}] * len(ks)
+
+        def solves(X):
+            for s in range(0, nk, chain):
+                ks = k_cart[s:s + chain]
+                kws, got = hooks(ks), []
+                for k, kw in zip(ks, kws):
+                    r, support = self.solve_fn(X, k, self.nev, self.tol,
+                                               self.maxiter, **kw)
+                    X = r.eigenvectors
+                    got.append(self._fetch(r, support, batched=False))
+                kw = kws = None   # free the chain's setups before the next
+                yield list(range(s, s + len(ks))), ks, _joined(got)
+        return self._pipelined(solves(self._x0()), nk, writer, k_index)
 
     def run(self, k_cart: np.ndarray, mesh=None, chunk: Optional[int] = None,
             writer=None, k_index: Optional[np.ndarray] = None
@@ -443,7 +564,11 @@ class BandSweep:
         rank r solves the r-th equal share of it as one k-batched solve on
         its device and refines it on its worker thread; each chunk's rows
         are gathered from every rank in k order and written by rank 0,
-        and every rank returns the same ``SweepResult``."""
+        and every rank returns the same ``SweepResult``.
+
+        With ``restart_tol`` each chunk's solve runs in two phases: to
+        ``restart_tol``, then from its blocks (one per k) to the device
+        stop; a k's iterations are the sum of its two phases'."""
         k_cart = self._rounded(k_cart)
         nk = len(k_cart)
         P = mesh.size if mesh is not None else 1
@@ -453,8 +578,15 @@ class BandSweep:
         def solves(X0):
             for s in range(0, nk, chunk):
                 ks, lo, real = shard_k(mesh, k_cart[s:s + chunk])
-                r, support = bsolve(X0, ks, self.nev, self.tol,
+                if self.restart_tol:
+                    mid, _ = bsolve(X0, ks, self.nev, self.restart_tol,
                                     self.maxiter)
+                    r, support = bsolve(mid.eigenvectors, ks, self.nev,
+                                        self.tol, self.maxiter)
+                    r = r._replace(iterations=mid.iterations + r.iterations)
+                else:
+                    r, support = bsolve(X0, ks, self.nev, self.tol,
+                                        self.maxiter)
                 yield (list(range(s + lo, s + lo + real)), ks,
                        self._fetch(r, support, batched=True))
         return self._pipelined(solves(self._x0()), nk, writer, k_index,

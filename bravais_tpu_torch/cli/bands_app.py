@@ -7,7 +7,11 @@
 Wires config -> lattice -> mesh -> operator -> k-sweep -> band table
 (+ checkpoint/resume, one JSON line per k, optional plot and mode
 dumps). ``--mode warm`` (the default) solves the k-points one after the
-other, each from the last; ``--mode batched`` solves them all as one
+other, each from the last; ``--mode warm-chain`` does too, in chains of
+``--chain`` k whose preconditioners come from ``--pc-mode`` ("per-k",
+"chain-mid", "batched" or "batched-setup": ``BandSweep.run_warm_chain``;
+an engine without the chain hooks runs "per-k"); ``--mode batched``
+solves them all as one
 k-batched solve (``BandSweep.run``) on every engine: the scalar and
 Maxwell spectral engines, the Maxwell field engine and the built-in
 solve with GMG or Jacobi. Runs on the CUDA device unless ``--device
@@ -29,14 +33,15 @@ launcher the group comes from its environment,
 (one card per rank, NCCL; ``--device cpu``: gloo; the ``--`` keeps
 torchrun's own parser from reading ``--n`` as an abbreviation of its
 options); without one it is a group of one. Only rank 0 writes the run directory, logs and saves
-modes; a ``--resume`` shards only the k still to do.
+modes; a ``--resume`` shards only the k still to do. ``--mode warm-chain
+--shard`` exits with an error: a chain runs on one device (the reference
+ignores the mesh there, and every rank would solve and write the same
+chain).
 
 The Maxwell ``gmg`` engine (``--engine gmg``, and ``auto`` on a grid
 with n < 3, where the fast-diagonal stencils do not exist) is the σ-shift
 solve with the quasi-periodic multigrid projector
-(``BlochCurlCurl.make_solve_fn(deflation="gmg")`` with Jacobi). What the
-port lacks
-exits with an error that names it: ``--mode warm-chain``.
+(``BlochCurlCurl.make_solve_fn(deflation="gmg")`` with Jacobi).
 """
 
 from __future__ import annotations
@@ -73,13 +78,21 @@ def resolve_device(cfg) -> str:
 
 
 def check_modes(cfg) -> None:
-    """Raise ``Unsupported`` for the execution modes the port lacks."""
-    if cfg.mode == "warm-chain":
-        raise Unsupported("--mode warm-chain is not ported (it amortizes a "
-                          "remote-TPU launch round trip); use --mode warm "
-                          "or batched")
-    if cfg.mode not in ("warm", "batched"):
+    """Raise ``Unsupported`` for an unknown execution mode, chain or
+    preconditioner mode, and for ``--mode warm-chain --shard``."""
+    if cfg.mode not in ("warm", "batched", "warm-chain"):
         raise Unsupported(f"unknown --mode {cfg.mode!r}")
+    if cfg.mode == "warm-chain":
+        if cfg.shard:
+            raise Unsupported("--mode warm-chain --shard: a chain runs on "
+                              "one device; use --mode warm or batched "
+                              "with --shard")
+        if cfg.chain < 1:
+            raise Unsupported(f"--chain must be at least 1, got "
+                              f"{cfg.chain}")
+        if cfg.pc_mode not in ("per-k", "chain-mid", "batched",
+                               "batched-setup"):
+            raise Unsupported(f"unknown --pc-mode {cfg.pc_mode!r}")
     if cfg.plot:
         import importlib.util
         if importlib.util.find_spec("matplotlib") is None:
@@ -255,6 +268,12 @@ def _run(cfg, device, mesh, log):
                                      k_index=todo_np)
     elif cfg.mode == "warm":
         res = sweep.run_warm(kcart, writer=writer, k_index=todo_np)
+    elif cfg.mode == "warm-chain":
+        res = sweep.run_warm_chain(kcart, chain=cfg.chain,
+                                   precond=cfg.pc_mode, writer=writer,
+                                   k_index=todo_np)
+        log(f"# warm-chain: chains of {cfg.chain}, preconditioner mode "
+            f"{sweep.chain_mode}")
     else:
         res = sweep.run(kcart, mesh=mesh, writer=writer, k_index=todo_np)
 

@@ -4,9 +4,8 @@ Port of ``bravais_tpu/cli/config.py``: one dataclass holds the lattice,
 mesh and order, PDE family, coefficients, k-path, solver, precision,
 execution and output settings, and serializes into the run manifest for
 checkpoint/resume identity. The identity fields are the reference's, so
-a run's identity hash is the same in both packages. Of the execution-only
-fields, the warm-chain ones (``chain``, ``pc_mode``) are left out with
-that mode, and one is added, ``device``.
+a run's identity hash is the same in both packages. One execution-only
+field is added, ``device``.
 """
 
 from __future__ import annotations
@@ -66,6 +65,11 @@ class RunConfig:
     precision: str = "f32"
     # execution
     mode: str = "warm"               # "warm" | "batched" | "warm-chain"
+    chain: int = 4                   # warm-chain: k-points per chain
+    #: warm-chain preconditioner build: "per-k" | "chain-mid" (one at the
+    #: chain's middle k) | "batched" (every chain k's in one call) |
+    #: "batched-setup" (every chain k's whole spectral setup in one call)
+    pc_mode: str = "per-k"
     #: shard the k-points over the ranks of a torch.distributed group
     #: (one process and one device per rank, e.g. under ``torchrun``)
     shard: bool = False
@@ -91,8 +95,8 @@ class RunConfig:
     #: whose eigenvalues differ from the pointwise-ik path at
     #: discretization-error level, so a resume across engines would
     #: silently mix two discretizations in one band table (ADVICE r2 #2).
-    _EXECUTION_FIELDS = ("out", "resume", "plot", "mode", "shard",
-                         "save_modes", "device")
+    _EXECUTION_FIELDS = ("out", "resume", "plot", "mode", "chain",
+                         "pc_mode", "shard", "save_modes", "device")
 
     def identity_dict(self) -> Dict:
         """The config subset that identifies a run's RESULTS — used for

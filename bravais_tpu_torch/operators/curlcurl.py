@@ -1178,25 +1178,36 @@ class BlochCurlCurl:
 
     # -- the spectral solve ---------------------------------------------------
 
-    def make_spectral_solve_fn(self) -> Callable:
+    def make_spectral_solve_fn(self, pc_rep: str = "factor") -> Callable:
         """LOBPCG run entirely in the twisted-DFT block basis.
 
         Per k: the blocks TA, TM, TG; the (A + sM)⁻¹ preconditioner
-        (s = ``default_fd_shift``) as its triangular factor
-        Yc = chol(TA + sTM)⁻¹, applied as Ycᴴ(Yc·R); the exact gradient
-        projector G L⁻¹ Gᴴ M through a δ-regularized Cholesky of
-        L = ĜᴴM̂Ĝ. Every per-iteration operation is a batched block
-        product over the B blocks. The Rayleigh–Ritz eigh stops at
-        ``PROD_RR_TOL``.
+        (s = ``default_fd_shift``) from the Cholesky factor of TA + sTM,
+        kept as ``pc_rep`` says: "factor" (the default) keeps the
+        triangular factor Yc = chol(TA + sTM)⁻¹ and applies it as
+        Ycᴴ(Yc·R), two GEMMs an apply; "inv" keeps the explicit inverse
+        YcᴴYc, one GEMM an apply; the exact gradient projector G L⁻¹ Gᴴ M
+        through a δ-regularized Cholesky of L = ĜᴴM̂Ĝ. Every
+        per-iteration operation is a batched block product over the B
+        blocks. The Rayleigh–Ritz eigh stops at ``PROD_RR_TOL``.
 
-        Returns ``solve(X0, k, nev, tol, maxiter)`` → (LobpcgResult with
-        field eigenvectors (m, 3, N₁, N₂, N₃), support (m, B)). With a k
-        table (nk, 3) it solves every k at once (``solve.batched``): the
-        blocks, factors and projector (nk, B, ...), the start block X0
-        (m, 3, N₁, N₂, N₃) shared (or one per k, (nk, m, 3, N₁, N₂, N₃)),
-        and a k-batched LOBPCG; every output
-        then has a leading k axis. ``solve.refine_np`` is the matching
-        host refine of one k.
+        Returns ``solve(X0, k, nev, tol, maxiter, *, pc=None, setup=None)``
+        → (LobpcgResult with field eigenvectors (m, 3, N₁, N₂, N₃),
+        support (m, B)). With a k table (nk, 3) it solves every k at once
+        (``solve.batched``): the blocks, factors and projector
+        (nk, B, ...), the start block X0 (m, 3, N₁, N₂, N₃) shared (or one
+        per k, (nk, m, 3, N₁, N₂, N₃)), and a k-batched LOBPCG; every
+        output then has a leading k axis. ``solve.refine_np`` is the
+        matching host refine of one k.
+
+        The per-k setup is also built on its own, for the sweep's chain
+        modes (``BandSweep.run_warm_chain``), at one k or a k table (nk,
+        3), every piece then with a leading k axis:
+        ``solve.build_pc(k)`` → the preconditioner (the factor or the
+        inverse, (B, D, D)), and ``solve.build_setup(k)`` → (TA, TM, TG,
+        the preconditioner, the projector factor). A solve handed
+        ``pc=`` (possibly built at another k) or ``setup=`` (built at its
+        own k) builds none of what it was handed.
         """
         from bravais_tpu_torch.eigen.lobpcg import (PROD_RR_TOL,
                                                     engine_scale_floor,
@@ -1206,6 +1217,8 @@ class BlochCurlCurl:
             raise ValueError("the spectral engine needs element-"
                              "translation-invariant coefficients; use "
                              "make_solve_fn (the field engine)")
+        if pc_rep not in ("factor", "inv"):
+            raise ValueError(f"unknown pc_rep {pc_rep!r}")
         sfloor = engine_scale_floor(self.dtype)
         s_ = self.default_fd_shift()
         self.fastdiag_G()  # host stencil extraction (A, M, G), cached
@@ -1216,23 +1229,41 @@ class BlochCurlCurl:
         def rows(Y):
             return Y.movedim(-1, -3)
 
-        def solve(X0, k, nev, tol, maxiter):
+        def pc_of(Tsh):
+            """(A+sM)⁻¹ from the blocks of A + sM (HPD: chol raises if
+            not): the factor Yc = L⁻¹, or YcᴴYc."""
+            Lc = torch.linalg.cholesky(Tsh)
+            eyeD = torch.eye(Tsh.shape[-1], dtype=self.dtype,
+                             device=self.device)
+            Yc = torch.linalg.solve_triangular(
+                Lc, eyeD.expand(Lc.shape), upper=False)
+            return Yc if pc_rep == "factor" else Yc.mH @ Yc
+
+        def build_pc(k):
+            """The preconditioner at k (or a k table) alone, from one
+            stencil product of A + sM (the reference's ``build_pc``)."""
+            return pc_of(self.fastdiag_G().blocks([("A", 1.0), ("M", s_)],
+                                                  k))
+
+        def build_setup(k, pc=None):
+            """(TA, TM, TG, the preconditioner, the projector factor) at k
+            (or a k table); ``pc`` given is used as it is."""
             fd = self.fastdiag_G()
-            F = fd._fwd_mats(fd._theta(k))
             TA = fd.blocks([("A", 1.0)], k)
             TM = fd.blocks([("M", 1.0)], k)
             TG = fd.blocks([("G", 1.0)], k)          # ([nk,] B, D, Dh1)
-            TGH = TG.mH
-            # (A+sM)⁻¹ as the factor Yc = L⁻¹ (HPD: chol raises if not).
-            Lc = torch.linalg.cholesky(TA + s_ * TM)
-            eyeD = torch.eye(fd.D, dtype=self.dtype, device=self.device)
-            Yc = torch.linalg.solve_triangular(
-                Lc, eyeD.expand(Lc.shape), upper=False)
-            YcH = Yc.mH                               # adjoint view
+            if pc is None:
+                pc = pc_of(TA + s_ * TM)
             # The exact gradient projector G L⁻¹ Gᴴ M through the factor
             # of L + δI.
-            Rl = projector_factor(TM, TG, TGH)
-            RlH = Rl.mH
+            return TA, TM, TG, pc, projector_factor(TM, TG, TG.mH)
+
+        def solve(X0, k, nev, tol, maxiter, *, pc=None, setup=None):
+            fd = self.fastdiag_G()
+            F = fd._fwd_mats(fd._theta(k))
+            TA, TM, TG, Tpc, Rl = (setup if setup is not None
+                                   else build_setup(k, pc))
+            TGH, RlH = TG.mH, Rl.mH                   # adjoint views
 
             def proj_cols(xc):
                 r = TGH @ (TM @ xc)
@@ -1243,9 +1274,16 @@ class BlochCurlCurl:
             def proj(X):
                 return rows(proj_cols(cols(X)))
 
-            def pcond(R):
-                zc = YcH @ (Yc @ cols(R))
-                return rows(zc - proj_cols(zc))
+            if pc_rep == "factor":
+                TpcH = Tpc.mH
+
+                def pcond(R):
+                    zc = TpcH @ (Tpc @ cols(R))
+                    return rows(zc - proj_cols(zc))
+            else:
+                def pcond(R):
+                    zc = Tpc @ cols(R)
+                    return rows(zc - proj_cols(zc))
 
             X0b = fd.to_blocks(X0, F)                 # ([nk,] m, B, D)
             X0b = X0b - proj(X0b)
@@ -1263,6 +1301,8 @@ class BlochCurlCurl:
         solve.provides_support = True
         solve.batched = True
         solve.refine_np = self.spectral_refine_np
+        solve.build_pc = build_pc
+        solve.build_setup = build_setup
         return solve
 
 

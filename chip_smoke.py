@@ -204,8 +204,9 @@ median wall over its wall (below 1: the overlap gains):
 16. ``[gmg]`` (after ``[batched]``): the σ-shift Maxwell engine
    (``make_solve_fn(deflation="gmg")``: LOBPCG on A + σ·M P, P by three
    QPGMG cycles, Jacobi) on config 3 at full width (``[diel]``'s
-   problem, k-points, device stop and maxiter), through ``run_warm`` and
-   the k-batched ``run``, each with the counts set to 0 just before and
+   problem, k-points, device stop and maxiter), through ``run_warm`` on
+   the path's first 6 k (cut from 16 for time) and the k-batched ``run``
+   on all 16, each with the counts set to 0 just before and
    read just after: ``[diel]``'s gates against the certify record at
    every warm-started k (a cold-started k, where the float32 σ-shift
    solve stalls as the reference's does, passes within them or with its
@@ -236,6 +237,33 @@ median wall over its wall (below 1: the overlap gains):
    bands of the same discretization, a cold k within them or flagged
    by its f64 certificate (``cold_check``). The new shapes are held in
    ``[launched]``.
+
+18. ``[chain]`` (after ``[batched]``, before ``[gmg]``): the reference's
+   remaining sweep schedules, each run with the counts set to 0 just
+   before and read just after, its shapes logged for ``[launched]``. The
+   headline (``[sweep]``'s setup) through ``BandSweep.run_warm_chain``
+   in chains of 4 k in each preconditioner mode ("per-k", "chain-mid":
+   one at the chain's middle k, "batched": every chain k's in one call,
+   "batched-setup": every chain k's blocks, preconditioner and projector
+   factor in one call), a cold pass and 3 timed passes each, then one
+   "batched-setup" pass with ``pc_rep="inv"``: the analytic bar at every
+   k, no refine fallback, Jacobi launches Σ iterations + nk; "per-k"'s
+   iterations ``[sweep]``'s, "batched" and "batched-setup"'s within ±1
+   of "per-k"'s (the line counts the k that differ); eig/s, solve and
+   refine seconds, peak memory per mode, and one chain's setup in ms
+   (CUDA events) as each mode builds it. Config 3 (``[diel]``'s problem
+   and stops) through ``run_warm`` with bench.py's near-Γ loose stop
+   (2e-3 for |k| < 0.15·min|bᵢ|): the k outside the ball within
+   ``[diel]``'s bars, the in-ball k taking no more iterations than in
+   ``[diel]``'s last pass and within the bars or flagged by an f64
+   certificate ≥ 1e-3 (never reported converged off them). Config 3
+   through one cold k-batched ``run`` with ``restart_tol=1e-3``:
+   ``[batched]``'s bars, the lockstep iterations of each phase and the
+   wall beside ``[batched]``'s single-phase run. Each config-3 run's
+   launches equal to the path's calls. Then the CLI as a user starts it,
+   ``--lattice FCC --problem maxwell --engine spectral --n 8 --p 4 --nk
+   16 --nev 10 --mode warm-chain --chain 4 --pc-mode batched-setup``,
+   and the same with ``--resume`` (``[cli]``'s gates).
 
 ``--four`` runs instead, on every card of a machine with at least four,
 what exists only across cards, each job under ``python -m
@@ -344,6 +372,10 @@ SCALE_NS = (8, 12)
 GMG_CLI_ARGS = ("--lattice", "FCC", "--problem", "maxwell", "--n", "2",
                 "--p", "2", "--path", "G,X,W,L", "--nk", "8", "--nev", "4")
 GMG_CLI_BAR = 1e-5
+# ``[gmg]``'s ``run_warm`` runs the first 6 k of config 3's path (the
+# certify record's k 0, 1 and 5; cut from 16 for time: ~100 iterations a
+# k, ~115-150 s a pass on the H100).
+GMG_WARM_NK = 6
 # ``[cg]``: the element-invariant runs of the CG projector and the direct
 # fast-diagonal projector, FCC n=3 p=2 on Γ–X–W–L at nk=8, held against
 # the spectral engine's bands of the same discretization at GMG_CLI_BAR.
@@ -355,6 +387,20 @@ GMG_CLI_BAR = 1e-5
 # Reference caveats).
 CG_FCC_N, CG_FCC_P, CG_FCC_NK = 3, 2, 8
 CG_FCC_FLAG = 10 * FIELD_DEVICE_TOL
+# ``[chain]``: ``run_warm_chain`` on the headline in chains of 4 k, in
+# every preconditioner mode; config 3's near-Γ loose stop at bench.py's
+# values (2e-3 inside |k| < 0.15·min|bᵢ|; an in-ball k off its bar must
+# show an f64 certificate of 1e-3 or more) and its two-phase batched
+# solve (phase 1 to 1e-3); the headline's problem through the CLI's
+# ``--mode warm-chain``.
+CHAIN = 4
+CHAIN_MODES = ("per-k", "chain-mid", "batched", "batched-setup")
+NEAR_GAMMA_TOL, NEAR_GAMMA_FRAC, NEAR_GAMMA_FLAG = 2e-3, 0.15, 1e-3
+RESTART_TOL = 1e-3
+CHAIN_CLI_ARGS = ("--lattice", "FCC", "--problem", "maxwell", "--engine",
+                  "spectral", "--n", "8", "--p", "4", "--nk", "16", "--nev",
+                  "10", "--mode", "warm-chain", "--chain", "4", "--pc-mode",
+                  "batched-setup")
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and float32 flop/s
 # outside the tensor cores.
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -643,10 +689,12 @@ def kernel_times(dev, op3, rods=None, plain=True, op4=None, op5=None,
                 [rand_herm(16, 400 + i) for i in range(16)]), None),
             ("batched l-twin 16x216x27x27", ltwin_blocks(op3, 16), None),
             ("batched l-twin 8x512x64x64", ltwin_blocks(op4, 8), None)]
-    if op4 is not None:
-        # Last: its eigh trace (≈80,000 device operations) can leave the
-        # process's next traces empty (below).
-        jac_shapes.append(("l-twin 512x64x64", ltwin_blocks(op4), None))
+    # Traced after every other shape, the logged ones too: its eigh trace
+    # (≈80,000 device operations) can leave the process's next traces
+    # empty (below).
+    last = ([("l-twin 512x64x64", ltwin_blocks(op4), None)]
+            if op4 is not None else [])
+
     def jac_record(H, rel_tol, sweeps=24, **extra):
         huge = H.numel() // H.shape[-1] ** 2 > 1000
         nsw = jacobi_cuda.sweeps_run(H, sweeps, rel_tol).reshape(-1)
@@ -693,6 +741,9 @@ def kernel_times(dev, op3, rods=None, plain=True, op4=None, op5=None,
                 lambda: h1_apply.helmholtz_apply_plain(ue, c, kt, want),
                 h1_apply.work(ue.shape[0], c, kt, want),
                 launches=rec["calls"])
+    for key, H, rel_tol in last if "jacobi" in kernels else ():
+        H = torch.as_tensor(H, dtype=torch.complex64, device=dev)
+        out["jacobi"][key] = jac_record(H, rel_tol)
     return out
 
 
@@ -1264,7 +1315,7 @@ def eig_error(lam, lat, k, mmax, mult):
 
 def phase_sweep(dev, head):
     """The headline warm sweep (``head``: the ``headline`` setup); returns
-    the main path's launch count."""
+    (the main path's launch count, the last pass's iterations per k)."""
     import numpy as np
     import torch
     from bravais_tpu_torch.eigen import jacobi_cuda
@@ -1308,7 +1359,7 @@ def phase_sweep(dev, head):
         f"{res.iterations.mean():.2f}, max eig err {err:.3e}, max refined "
         f"residual {resid:.3e}, refine cross-check failures 0, peak device "
         f"memory {peak_mib(dev):.1f} MiB")
-    return launches
+    return launches, res.iterations
 
 
 def dielectric(dev):
@@ -1400,7 +1451,7 @@ def diel_errors(res, oracle):
 def phase_dielectric(dev, setup, passes=DIEL_PASSES):
     """The config-3 warm sweep, one cold pass and ``passes`` timed ones;
     returns (the launches of one pass, eig/s: the median over the timed
-    passes)."""
+    passes, the last pass's result)."""
     import numpy as np
     import torch
     from bravais_tpu_torch.eigen import jacobi_cuda
@@ -1459,7 +1510,7 @@ def phase_dielectric(dev, setup, passes=DIEL_PASSES):
         f"{got['nd M'] + got['nd AM']} (M {got['nd M']}, AM {got['nd AM']}), "
         f"h1 {got['h1']}, Jacobi {got['jacobi']}, peak device memory "
         f"{peak_mib(dev):.1f} MiB")
-    return got, len(kc) / wall
+    return got, len(kc) / wall, res
 
 
 def dense_bands(space, k, nev, alpha, beta, dev):
@@ -1884,6 +1935,10 @@ def _zero_counts():
             d[key] = 0
 
 
+#: ``_counts``' keys.
+COUNT_KEYS = ("nd M", "nd AM", "nd A", "h1 A", "h1 AM", "h1 M", "jacobi")
+
+
 def _counts():
     """Every kernel's launch count, nd and h1 by the halves computed."""
     from bravais_tpu_torch.eigen import jacobi_cuda
@@ -1905,15 +1960,19 @@ def expected_batched_launches(iterations, sweep, steps=None):
     the whole chunk one launch); every other solve those of
     ``expected_h1_launches`` (the spectral engines: Jacobi only)."""
     it = [int(max(iterations))]
-    out = dict.fromkeys(("nd M", "nd AM", "nd A", "h1 A", "h1 AM", "h1 M",
-                         "jacobi"), 0)
-    if steps is None:
-        out.update(expected_h1_launches(it, sweep))
-    else:
-        e = expected_launches(it, steps)
-        out.update({key: e[key] for key in ("nd M", "nd AM", "nd A",
-                                            "jacobi")})
-        out["h1 A"] = e["h1"]
+    if steps is not None:
+        return as_counts(expected_launches(it, steps))
+    out = dict.fromkeys(COUNT_KEYS, 0)
+    out.update(expected_h1_launches(it, sweep))
+    return out
+
+
+def as_counts(e):
+    """``expected_launches``' dict under ``_counts``' keys (its h1 applies
+    are the "A" half)."""
+    out = dict.fromkeys(COUNT_KEYS, 0)
+    out.update({key: e[key] for key in ("nd M", "nd AM", "nd A", "jacobi")})
+    out["h1 A"] = e["h1"]
     return out
 
 
@@ -1959,7 +2018,8 @@ def phase_batched(dev, head, setup3, rods, setup4):
     (``expected_batched_launches``); on the headline, config 3 and config
     2 ``run(chunk=1)`` (one k a solve) gives the iterations per k within
     ±1 (rounding, below) and the refined bands within 1e-6. Returns
-    {path: launches of its batched run}."""
+    ({path: launches of its batched run}, {path: (wall s, lockstep
+    iterations) of its one-chunk run})."""
     import numpy as np
     import torch
     from bravais_tpu_torch.bands.sweep import BandSweep
@@ -1983,7 +2043,7 @@ def phase_batched(dev, head, setup3, rods, setup4):
              ("config3", kc3, sw3, check3, op3.cheby_steps()),
              ("fcc_field", kc4, sw4, analytic(kc4, lat4), 1),
              ("config2", kc2, sw2, check2, None))
-    launches = {}
+    launches, runs = {}, {}
     for tag, kc, sweep, check, steps in paths:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -2010,6 +2070,7 @@ def phase_batched(dev, head, setup3, rods, setup4):
             raise RuntimeError(f"batched {tag}: kernel launches {got} != the"
                                f" batch's calls {want}")
         launches[tag] = got
+        runs[tag] = (wall, int(max(res.iterations)))
         if tag == "fcc_field":
             continue
         # Batched against looped: the same solves one k at a time. The
@@ -2074,6 +2135,214 @@ def phase_batched(dev, head, setup3, rods, setup4):
                                f"launches {got4} != the chunks' calls "
                                f"{want4}")
         launches[f"{tag}_chunk{BATCH_CHUNK}"] = got4
+    return launches, runs
+
+
+def chain_setup_ms(solve, ks):
+    """The setup of one chain of k ``ks`` on the spectral engine, ms
+    between CUDA events: what "per-k" builds (a whole setup a k), what
+    "batched-setup" builds (one call on the chain's k table), each k's
+    preconditioner alone and in one call ("batched"), and the one
+    preconditioner of "chain-mid". Each the median of 3 calls after
+    one."""
+    from bravais_tpu_torch.utils.timing import cuda_ms
+
+    def ms(fn):
+        return cuda_ms(fn, reps=3, warmup=1)
+    return {
+        f"{len(ks)} per-k setups": ms(
+            lambda: [solve.build_setup(k) for k in ks]),
+        "one batched setup": ms(lambda: solve.build_setup(ks)),
+        f"{len(ks)} per-k preconditioners": ms(
+            lambda: [solve.build_pc(k) for k in ks]),
+        "one batched preconditioner": ms(lambda: solve.build_pc(ks)),
+        "one preconditioner": ms(
+            lambda: solve.build_pc(ks[len(ks) // 2]))}
+
+
+def phase_chain(dev, head, sweep_its, setup3, diel_res, batched_runs):
+    """``[chain]``: the reference's remaining sweep schedules at full
+    width, each run with every count set to 0 just before and read just
+    after.
+
+    * The headline (``head``) through ``run_warm_chain(chain=CHAIN)`` in
+      each of ``CHAIN_MODES``, one cold pass and ``PASSES`` timed ones,
+      then one "batched-setup" pass with ``pc_rep="inv"``: every k
+      within ``ERR_BAR`` of the analytic bands, no refine fallback,
+      Jacobi launches Σ iterations + nk and no element kernel; "per-k"
+      giving ``[sweep]``'s iterations (``sweep_its``) at every k,
+      "batched" and "batched-setup" "per-k"'s within ±1 (the line counts
+      the k that differ); the setup ms of one chain (``chain_setup_ms``).
+    * Config 3 (``setup3``) through ``run_warm`` with the near-Γ loose
+      stop: the k outside the ball within ``[diel]``'s bars, the in-ball
+      k taking no more iterations than in ``[diel]``'s last pass
+      (``diel_res``) and within the bars or flagged by an f64
+      certificate ≥ ``NEAR_GAMMA_FLAG``; launches the path's calls.
+    * Config 3 through one cold k-batched ``run`` with ``restart_tol``:
+      ``[batched]``'s bars, its iterations the sum of the two phases',
+      launches those of the two k-batched solves; its wall and lockstep
+      iterations beside ``[batched]``'s single-phase run
+      (``batched_runs``).
+    * ``CHAIN_CLI_ARGS`` through the CLI and ``--resume`` (``cli_twice``).
+
+    Returns {path: launches}."""
+    import numpy as np
+    import torch
+    from bravais_tpu_torch.bands.sweep import BandSweep
+
+    lat, kc, op, sw = head
+    check = analytic_check(kc, lat)
+    solve = sw.solve_fn
+    launches, its_by_mode, failed = {}, {}, []
+    setup = chain_setup_ms(solve, sw._rounded(kc)[:CHAIN])
+    log("chain", f"headline setup of one chain of {CHAIN} k (ms, CUDA "
+        f"events, median of 3): " + ", ".join(
+            f"{name} {ms:.3f}" for name, ms in setup.items()))
+    inv = BandSweep(op, op.make_spectral_solve_fn(pc_rep="inv"), nev=NEV,
+                    block=BLOCK, tol=TOL, maxiter=MAXITER,
+                    device_tol=DEVICE_TOL)
+    runs = [(mode, sw, mode, PASSES) for mode in CHAIN_MODES]
+    runs.append(("batched-setup inv", inv, "batched-setup", 0))
+    for tag, sweep, mode, passes in runs:
+        log_path(f"chain headline {tag}")
+        walls = []
+        for p in range(passes + 1):
+            torch.cuda.synchronize()
+            if p == min(passes, 1):
+                torch.cuda.reset_peak_memory_stats(dev)
+            _zero_counts()
+            res = sweep.run_warm_chain(kc, chain=CHAIN, precond=mode)
+            torch.cuda.synchronize()
+            got = _counts()
+            want = dict.fromkeys(COUNT_KEYS, 0)
+            want["jacobi"] = int(res.iterations.sum()) + len(kc)
+            text, ok = check(res)
+            if p:
+                walls.append(res.wall_s)
+            if not ok or sweep.chain_mode != mode:
+                failed.append(f"headline {tag}: {text}, mode "
+                              f"{sweep.chain_mode}")
+            if got != want:
+                failed.append(f"headline {tag}: launches {got} != the "
+                              f"path's calls {want}")
+        wall = statistics.median(walls) if walls else res.wall_s
+        its = res.iterations
+        ref = sweep_its if mode == "per-k" else its_by_mode.get("per-k")
+        diff = (int(np.sum(its != ref)) if ref is not None else None)
+        if tag == "per-k" and diff:
+            failed.append(f"headline per-k: iterations {its.tolist()} != "
+                          f"[sweep]'s {list(sweep_its)}")
+        if tag in ("batched", "batched-setup") and np.any(
+                np.abs(its - ref) > 1):
+            failed.append(f"headline {tag}: iterations {its.tolist()} "
+                          f"vs per-k {ref.tolist()}")
+        its_by_mode.setdefault(mode, its)
+        launches[f"headline_{tag.replace(' ', '_')}"] = got
+        log("chain", f"headline {tag}: {len(kc) / wall:.4f} eig/s ("
+            + (f"median of {passes}; " if passes else "one pass; ")
+            + f"{overlap(res)}), iters/k {its.mean():.2f} {its.tolist()} "
+            + ("" if diff is None else
+               f"({diff} of {len(kc)} k off "
+               + ("[sweep]'s run_warm" if mode == "per-k" else "per-k")
+               + "), ")
+            + f"Jacobi {got['jacobi']} (expected {want['jacobi']}), "
+            f"{text}, peak device memory {peak_mib(dev):.1f} MiB")
+
+    _, kc3, op3, sw3 = setup3
+    lat3 = setup3[0]
+    oracle = diel_oracle(kc3, op3)
+    steps = op3.cheby_steps()
+    radius = NEAR_GAMMA_FRAC * float(np.linalg.norm(lat3.B, axis=1).min())
+    ng = BandSweep(op3, sw3.solve_fn, nev=NEV, block=BLOCK, tol=TOL,
+                   maxiter=MAXITER, device_tol=DIEL_DEVICE_TOL,
+                   near_gamma_tol=NEAR_GAMMA_TOL, near_gamma_norm=radius)
+    inside = np.linalg.norm(ng._rounded(kc3), axis=1) < radius
+    log_path("chain config 3 near-gamma")
+    torch.cuda.synchronize()
+    _zero_counts()
+    res = ng.run_warm(kc3)
+    torch.cuda.synchronize()
+    got = _counts()
+    want = as_counts(expected_launches(res.iterations, steps))
+    resid = res.residuals.max(axis=1)
+    text = []
+    for ki, lo, hi, ok in diel_errors(res, oracle):
+        flagged = bool(inside[ki]) and resid[ki] >= NEAR_GAMMA_FLAG
+        good = ok and resid[ki] < DIEL_RES_BAR
+        text.append(f"{ki}: {lo:.3e} {hi:.3e}" + (
+            f" (in the ball; not converged: certificate {resid[ki]:.3e})"
+            if flagged and not good else ""))
+        if not (good or flagged):
+            failed.append(f"config 3 near-gamma k {ki}: {lo:.3e} {hi:.3e}, "
+                          f"certificate {resid[ki]:.3e}")
+    its, its_d = res.iterations, diel_res.iterations
+    if np.any(its[inside] > its_d[inside]):
+        failed.append(f"config 3 near-gamma: in-ball iterations "
+                      f"{its[inside].tolist()} > [diel]'s "
+                      f"{its_d[inside].tolist()}")
+    if not (np.all(np.isfinite(resid))
+            and np.all(resid[~inside] < DIEL_RES_BAR)):
+        failed.append(f"config 3 near-gamma: residuals {resid.tolist()}")
+    if got != want:
+        failed.append(f"config 3 near-gamma: launches {got} != the path's "
+                      f"calls {want}")
+    launches["config3_near_gamma"] = got
+    log("chain", f"config 3 run_warm, near-gamma stop {NEAR_GAMMA_TOL:g} "
+        f"for |k| < {radius:.4f} (k {np.flatnonzero(inside).tolist()}): "
+        f"{len(kc3) / res.wall_s:.4f} eig/s ({overlap(res)}), iterations "
+        f"{its.tolist()} against [diel]'s {its_d.tolist()} (in the ball "
+        f"{int(its[inside].sum())} against {int(its_d[inside].sum())}; "
+        f"{int(its.sum())} against {int(its_d.sum())} a pass), launches "
+        f"{got} (expected {want}); oracle errors (k index: band 1, band "
+        f"10) {', '.join(text)}; max refined residual per k "
+        + " ".join(f"{r:.3e}" for r in resid))
+
+    rs = BandSweep(op3, sw3.solve_fn, nev=NEV, block=BLOCK, tol=TOL,
+                   maxiter=MAXITER, device_tol=DIEL_DEVICE_TOL,
+                   restart_tol=RESTART_TOL)
+    calls, undo = _recording(rs)
+    log_path("chain config 3 restart")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = rs.run(kc3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _counts()
+    undo()
+    want = _batch_launches(calls, rs, steps)
+    text, ok = diel_check(oracle)(res)
+    lock = [int(max(c)) for c in calls]
+    wall1, lock1 = batched_runs["config3"]
+    if not ok:
+        failed.append(f"config 3 restart: {text}")
+    if (len(calls) != 2 or got != want
+            or not np.array_equal(res.iterations, calls[0] + calls[1])):
+        failed.append(f"config 3 restart: launches {got} != the path's "
+                      f"calls {want}, or iterations {res.iterations} not "
+                      f"the phases' sum")
+    launches["config3_restart"] = got
+    log("chain", f"config 3 run, restart at {RESTART_TOL:g}: wall "
+        f"{wall:.3f} s ({overlap(res)}) against [batched]'s single phase "
+        f"{wall1:.3f} s; lockstep iterations {lock[0]} + {lock[1]} = "
+        f"{sum(lock)} against {lock1}; iterations per k "
+        f"{res.iterations.tolist()} (phase 1 {calls[0].tolist()}); peak "
+        f"device memory {peak_mib(dev):.1f} MiB; launches {got} (expected "
+        f"{want}); {text}")
+    log_path(None)
+
+    wall, out, iters, errs, wall2 = cli_twice("chain", CHAIN_CLI_ARGS)
+    log("chain", f"FCC spectral --mode warm-chain via the CLI: {wall:.2f} s "
+        f"(process start and build load included), iters/k "
+        f"{np.mean(iters):.2f} {iters}, max eig err {max(errs):.3e} "
+        f"(<{ERR_BAR:g}) at every k; --resume: exit 0 in {wall2:.2f} s, "
+        f"nothing recomputed")
+    if "# warm-chain: chains of 4, preconditioner mode batched-setup" \
+            not in out.splitlines():
+        failed.append("cli: the run did not say it ran batched-setup")
+    if failed:
+        raise RuntimeError("chain: " + "; ".join(failed))
     return launches
 
 
@@ -2158,9 +2427,10 @@ def gmg_check(oracle, first):
 def phase_gmg(dev, setup3):
     """``[gmg]``: the σ-shift Maxwell engine (``make_solve_fn(deflation=
     "gmg")``: LOBPCG on A + σ·M P with the QPGMG gradient projector and
-    Jacobi) at full width, config 3 (n=6 p=3, nk=16, 10 bands in 16,
-    device stop 1e-4, ``[diel]``'s maxiter, then the f64 host refine)
-    through ``run_warm`` and the k-batched ``run``, each with every count
+    Jacobi) at full width, config 3 (n=6 p=3, 10 bands in 16, device stop
+    1e-4, ``[diel]``'s maxiter, then the f64 host refine) through
+    ``run_warm`` on its first ``GMG_WARM_NK`` k and the k-batched ``run``
+    on all 16, each with every count
     set to 0 just before and read just after: ``[diel]``'s gates against
     the certify record at every warm-started k, a certificate that flags
     any cold-started k off them (``gmg_check``), the launches equal to the
@@ -2194,21 +2464,24 @@ def phase_gmg(dev, setup3):
                       maxiter=MAXITER, device_tol=DIEL_DEVICE_TOL)
     oracle = diel_oracle(kc, op)
     launches, failed = {}, []
-    for tag, run in (("run_warm", sweep.run_warm), ("run", sweep.run)):
-        check = gmg_check(oracle, first=1 if tag == "run_warm" else len(kc))
+    for tag, run, ks in (("run_warm", sweep.run_warm, kc[:GMG_WARM_NK]),
+                         ("run", sweep.run, kc)):
+        check = gmg_check({ki: rec for ki, rec in oracle.items()
+                           if ki < len(ks)},
+                          first=1 if tag == "run_warm" else len(ks))
         log_path(f"gmg config 3 {tag}")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         _zero_counts()
-        res = run(kc)
+        res = run(ks)
         torch.cuda.synchronize()
         got = _counts()
         its = (res.iterations.tolist() if tag == "run_warm"
                else [int(max(res.iterations))])
         want = expected_field_launches(its, "gmg", None, gmg=gmg)[0]
         text, ok = check(res)
-        log("gmg", f"config 3 {tag}: {overlap(res)}, "
-            f"{len(kc) / res.wall_s:.4f} eig/s, iterations per k "
+        log("gmg", f"config 3 {tag}: nk={len(ks)}, {overlap(res)}, "
+            f"{len(ks) / res.wall_s:.4f} eig/s, iterations per k "
             f"{res.iterations.tolist()} (mean {res.iterations.mean():.2f}"
             + ("" if tag == "run_warm" else
                f", {its[0]} lockstep") + f"), launches {got} (expected "
@@ -3217,28 +3490,31 @@ def phase_four(dev):
     return four_dd(dev, nproc)
 
 
-def phase_cli(dev):
-    """Config 4's BCC half through the CLI, in a subprocess as a user
-    starts it (``CLI_ARGS``), then again with ``--resume``. Gates: both
-    exit 0; the first solves every k and the second none ("all k-points
-    already finished"); ``bands.npz`` holds finite bands at every k
-    within 1e-6 (bench.py's measure) of the analytic bands at the k the
-    CLI solved (Γ nudged, rounded to float32). Returns the wall of the
-    first run in seconds."""
+def cli_twice(tag, args):
+    """The CLI in a subprocess as a user starts it (``args``, a run
+    directory added), then again with ``--resume``. Gates: both exit 0;
+    the first solves every k and the second none ("all k-points already
+    finished"); ``bands.npz`` holds finite bands at every k within 1e-6
+    (bench.py's measure) of the analytic bands at the k the CLI solved
+    (Γ nudged, rounded to float32). Returns (the first run's wall in
+    seconds, its stdout, iterations per k, the errors per k, the
+    resume's wall)."""
     import tempfile
 
     import numpy as np
     from bravais_tpu_torch.lattices import kpath, make_lattice
 
-    lat = make_lattice("BCC")
-    nk = int(CLI_ARGS[CLI_ARGS.index("--nk") + 1])
-    kc = nudged(lat, kpath(lat, npts=nk).k_cart)
+    lat = make_lattice(args[args.index("--lattice") + 1])
+    nk = int(args[args.index("--nk") + 1])
+    path = (None if "--path" not in args else
+            [args[args.index("--path") + 1].split(",")])
+    kc = nudged(lat, kpath(lat, npts=nk, path=path).k_cart)
     kc = kc.astype(np.float32).astype(np.float64)
     with tempfile.TemporaryDirectory() as tmp:
-        out = Path(tmp) / "bcc"
-        cmd = [sys.executable, "-m", "bravais_tpu_torch", *CLI_ARGS,
+        out = Path(tmp) / "run"
+        cmd = [sys.executable, "-m", "bravais_tpu_torch", *args,
                "--out", str(out)]
-        log("cli", " ".join(cmd[1:]))
+        log(tag, " ".join(cmd[1:]))
         # The CLI as a user starts it: without this script's BLAS caps
         # (the package sets its own).
         env = {k: v for k, v in os.environ.items()
@@ -3250,9 +3526,9 @@ def phase_cli(dev):
                                capture_output=True, timeout=900, env=env)
             runs.append((time.perf_counter() - t0, r))
             for line in r.stdout.splitlines():
-                log("cli", line)
+                log(tag, line)
             if r.returncode:
-                raise RuntimeError(f"cli{' '.join(extra)} exited "
+                raise RuntimeError(f"{tag}: cli{' '.join(extra)} exited "
                                    f"{r.returncode}: {r.stderr[-3000:]}")
         solved = [json.loads(line) for line in runs[0][1].stdout.splitlines()
                   if line.startswith("{")]
@@ -3261,26 +3537,38 @@ def phase_cli(dev):
         finished = json.loads((out / "manifest.json").read_text())["finished"]
     lam = dat["eigenvalues"]
     iters = [s["iters"] for s in sorted(solved, key=lambda s: s["k_index"])]
+    nev = int(args[args.index("--nev") + 1])
     if sorted(s["k_index"] for s in solved) != list(range(nk)):
-        raise RuntimeError(f"cli: solved k {[s['k_index'] for s in solved]}")
+        raise RuntimeError(f"{tag}: solved k "
+                           f"{[s['k_index'] for s in solved]}")
     if ("all k-points already finished" not in resumed
             or any(line.startswith("{") for line in resumed.splitlines())):
-        raise RuntimeError(f"cli --resume recomputed: {resumed[-2000:]}")
-    if finished != list(range(nk)) or lam.shape != (nk, NEV) \
+        raise RuntimeError(f"{tag}: --resume recomputed: {resumed[-2000:]}")
+    if finished != list(range(nk)) or lam.shape != (nk, nev) \
             or not np.all(np.isfinite(lam)):
-        raise RuntimeError(f"cli: bands.npz {lam.shape}, finished "
+        raise RuntimeError(f"{tag}: bands.npz {lam.shape}, finished "
                            f"{finished}")
     errs = [eig_error(lam[i], lat, k, mmax=3, mult=2)
             for i, k in enumerate(kc)]
-    log("cli", f"BCC field via the CLI: {runs[0][0]:.2f} s (process start, "
+    if not max(errs) < ERR_BAR:
+        raise RuntimeError(f"{tag}: eigenvalue errors {errs}")
+    return runs[0][0], runs[0][1].stdout, iters, errs, runs[1][0]
+
+
+def phase_cli(dev):
+    """Config 4's BCC half through the CLI (``CLI_ARGS``), run and resumed
+    with ``cli_twice``'s gates. Returns the wall of the first run in
+    seconds."""
+    import numpy as np
+
+    wall, _, iters, errs, wall2 = cli_twice("cli", CLI_ARGS)
+    log("cli", f"BCC field via the CLI: {wall:.2f} s (process start, "
         f"build load and stencils included), iters/k {np.mean(iters):.2f} "
         f"{iters}, max eig err {max(errs):.3e} (<{ERR_BAR:g}) at every k "
         f"[{', '.join(f'{e:.2e}' for e in errs)}]; --resume: exit 0 in "
-        f"{runs[1][0]:.2f} s, nothing recomputed (nk {nk}, cut from 16 for "
-        f"time)")
-    if not max(errs) < ERR_BAR:
-        raise RuntimeError(f"cli: eigenvalue errors {errs}")
-    return runs[0][0]
+        f"{wall2:.2f} s, nothing recomputed (nk {len(iters)}, cut from 16 "
+        f"for time)")
+    return wall
 
 
 def main():
@@ -3358,9 +3646,9 @@ def main():
     # here to ``[certify]``'s end, and held against the plain versions
     # after (``phase_launched``).
     log_path("sweep headline")
-    fcc_launches = phase_sweep(dev, head)
+    fcc_launches, sweep_its = phase_sweep(dev, head)
     log_path("diel config 3")
-    diel, _ = phase_dielectric(dev, setup3)
+    diel, _, diel_res = phase_dielectric(dev, setup3)
     scalar_set = scalar_setup(dev)
     log_path("scalar config 1")
     scalar, _ = phase_scalar(dev, scalar_set)
@@ -3379,7 +3667,8 @@ def main():
     phase_cli(dev)
     log_path("config5")
     c5 = phase_config5(dev)
-    batched = phase_batched(dev, head, setup3, rods, setup4)
+    batched, batched_runs = phase_batched(dev, head, setup3, rods, setup4)
+    chain = phase_chain(dev, head, sweep_its, setup3, diel_res, batched_runs)
     gmg = phase_gmg(dev, setup3)
     cg = phase_cg(dev, setup3)
     cert = phase_certify(dev)
@@ -3391,14 +3680,17 @@ def main():
     # The profiler's phases come last, so that the launch-bound sweeps
     # run in a process it has not traced.
     phase_one_operation(dev, setup3[2], setup4[2])
+    # Before ``kernel_times``, whose last trace can leave the process's
+    # later traces empty.
+    torch.cuda.empty_cache()
+    dd_times = dd_slab_times(dev, n_dd, 4)
     new_runs = [(key, rec) for key, rec in LAUNCHED.items()
                 if rec["path"].endswith(f"chunk={BATCH_CHUNK}")
-                or rec["path"].startswith(("certify", "gmg", "cg"))]
+                or rec["path"].startswith(("certify", "gmg", "cg", "chain"))]
     times = kernel_times(dev, setup3[2], rods, op4=setup4[2], op5=op5,
                          batched=True, logged=new_runs)
     log_times(times)
-    torch.cuda.empty_cache()
-    times["nd"].update(dd_slab_times(dev, n_dd, 4))
+    times["nd"].update(dd_times)
     jac, nd_rec, h1_rec = (
         {"name": name, "route": "cuda",
          "source": f"bravais_tpu_torch/csrc/{src}.cu",
@@ -3431,6 +3723,7 @@ def main():
         **{f"certify_eps{e:g}": got["jacobi"] for e, got in cert.items()},
         **{f"gmg_{path}": got["jacobi"] for path, got in gmg.items()},
         **{f"cg_{path}": got["jacobi"] for path, got in cg.items()},
+        **{f"chain_{path}": got["jacobi"] for path, got in chain.items()},
         "certify_prod": cert_prod["jacobi"], "scale": scale,
         "scale_dd_model": scale_dd.get("jacobi", 0)}
     # [shard]: each rank's launches on each sharded path, and the shapes
@@ -3463,6 +3756,9 @@ def main():
                           *((f"gmg_{path}", got)
                             for path, got in gmg.items()),
                           *((f"cg_{path}", got) for path, got in cg.items()),
+                          *((f"chain_{path}", got)
+                            for path, got in chain.items()
+                            if path.startswith("config3")),
                           ("certify_prod", cert_prod),
                           ("scale_dd_model", scale_dd),
                           *((key, got) for key, got in shard_runs
@@ -3484,8 +3780,9 @@ def main():
         **{f"certify_eps{e:g}": {w: got[f"h1 {w}"] for w in ("A", "AM", "M")}
            for e, got in cert.items()},
         **{f"{tag}_{path}": {w: got[f"h1 {w}"] for w in ("A", "AM", "M")}
-           for tag, runs in (("gmg", gmg), ("cg", cg))
-           for path, got in runs.items()},
+           for tag, runs in (("gmg", gmg), ("cg", cg), ("chain", chain))
+           for path, got in runs.items() if tag != "chain"
+           or path.startswith("config3")},
         "certify_prod": {w: cert_prod[f"h1 {w}"] for w in ("A", "AM", "M")},
         **{key: {w: got.get(f"h1 {w}", 0) for w in ("A", "AM", "M")}
            for key, got in shard_runs
@@ -3494,7 +3791,7 @@ def main():
         v for path in (rods2d, te, c5["field"], batched["config3"],
                        batched["config3_chunk4"], batched["config2"],
                        *cert.values(), *gmg.values(), *cg.values(),
-                       cert_prod)
+                       *chain.values(), cert_prod)
         for key, v in path.items() if key.startswith("h1")) + sum(
         v for _, got in shard_runs for key, v in got.items()
         if key.startswith("h1"))

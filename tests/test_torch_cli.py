@@ -10,6 +10,9 @@ its eigen-equation; the VTK dump), plus:
 * the CLI's engine rule, every accept and every error, as a table;
 * the gmg engine (``--engine gmg``, and ``auto`` on n < 3) run to the end
   in float64 against the reference CLI's bands (1e-8);
+* ``--mode warm-chain`` run to the end, and a ``--mode warm`` run resumed
+  as a warm-chain run, against the reference CLI's warm-chain bands
+  (1e-8);
 * a run directory written by either package loads with the other's
   ``load_bands``;
 * the port's ``run(cfg)`` on a tiny float64 SQR TM-rods problem against
@@ -234,7 +237,7 @@ def test_engine_rule(problem, engine, n, invariant, want):
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--mode", "warm-chain"], "--mode warm-chain is not ported"),
+    (["--mode", "warm-chain", "--shard"], "--mode warm-chain --shard"),
     (["--shard", "--device", "cuda"], "no CUDA device"),
     (["--device", "cuda"], "no CUDA device"),
     ([], "no CUDA device"),
@@ -282,6 +285,80 @@ def test_gmg_engine_runs_and_matches_reference(extra, tmp_path, capsys):
     top = np.abs(lam_r).max(axis=1, keepdims=True)
     scale = np.where(np.abs(lam_r) > 1e-3 * top, np.abs(lam_r), top)
     assert np.max(np.abs(lam - lam_r) / scale) < 1e-8, (lam, lam_r)
+
+
+#: ``--mode warm-chain`` on the spectral engine (FCC n=3 p=2, Γ–X–W at 6
+#: points, chains of 4, every chain k's setup in one call), float64 on the
+#: CPU.
+CHAIN_ARGV = ["--lattice", "FCC", "--problem", "maxwell", "--n", "3", "--p",
+              "2", "--path", "G,X,W", "--nk", "6", "--nev", "4", "--device",
+              "cpu", "--precision", "f64", "--mode", "warm-chain", "--chain",
+              "4", "--pc-mode", "batched-setup"]
+
+
+@pytest.fixture(scope="module")
+def chain_ref_bands(tmp_path_factory):
+    """The reference CLI's ``run`` of ``CHAIN_ARGV``'s configuration."""
+    cfg = RunConfigRef(lattice="FCC", problem="maxwell", n=3, p=2,
+                       path=[["G", "X", "W"]], nk=6, nev=4, precision="f64",
+                       mode="warm-chain", chain=4, pc_mode="batched-setup",
+                       out=str(tmp_path_factory.mktemp("ref")))
+    return run_ref(cfg, log=lambda s: None).eigenvalues
+
+
+def _scaled_diff(lam, lam_r):
+    top = np.abs(lam_r).max(axis=1, keepdims=True)
+    scale = np.where(np.abs(lam_r) > 1e-3 * top, np.abs(lam_r), top)
+    return float(np.max(np.abs(lam - lam_r) / scale))
+
+
+def test_warm_chain_runs_and_matches_reference(chain_ref_bands, tmp_path,
+                                               capsys):
+    """``--mode warm-chain`` runs to the end on ``--device cpu --precision
+    f64`` with the spectral engine's every-chain-k setup, and its bands
+    equal the reference CLI's warm-chain run within 1e-8 (both solve to
+    the same stop from the same start block; the reference keeps the
+    preconditioner as an inverse, the port as a factor)."""
+    assert bands_app.main(CHAIN_ARGV + ["--out", str(tmp_path)]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert "# engine spectral" in out
+    assert ("# warm-chain: chains of 4, preconditioner mode batched-setup"
+            in out)
+    lam = load_bands(tmp_path)[0]["eigenvalues"]
+    assert np.all(np.isfinite(lam)) and lam.shape == (6, 4)
+    assert _scaled_diff(lam, chain_ref_bands) < 1e-8
+
+
+def test_warm_run_resumes_as_warm_chain(chain_ref_bands, tmp_path,
+                                        monkeypatch, capsys):
+    """A ``--mode warm`` run stopped after 3 k resumes under ``--mode
+    warm-chain`` (the mode, chain and pc mode are execution-only, so the
+    run directory's identity holds): the resume solves only k 3–5, and
+    the whole table equals the reference's warm-chain run within 1e-8."""
+    out = str(tmp_path)
+    warm = CHAIN_ARGV[:CHAIN_ARGV.index("--mode")] + ["--out", out]
+    orig = BandWriter.write_chunk
+    calls = []
+
+    def stop(self, idx, *a):
+        orig(self, idx, *a)
+        calls.append(list(idx))
+        if len(calls) == 3:
+            raise KeyboardInterrupt
+    monkeypatch.setattr(BandWriter, "write_chunk", stop)
+    with pytest.raises(KeyboardInterrupt):
+        bands_app.main(warm)
+    monkeypatch.setattr(BandWriter, "write_chunk", orig)
+    assert load_bands(tmp_path)[1]["finished"] == [0, 1, 2]
+    capsys.readouterr()
+    assert bands_app.main(CHAIN_ARGV + ["--out", out, "--resume"]) == 0
+    solved = [json.loads(line)["k_index"]
+              for line in capsys.readouterr().out.splitlines()
+              if line.startswith("{")]
+    assert solved == [3, 4, 5]
+    dat, man = load_bands(tmp_path)
+    assert man["finished"] == list(range(6))
+    assert _scaled_diff(dat["eigenvalues"], chain_ref_bands) < 1e-8
 
 
 def test_plot_without_matplotlib_is_an_error(monkeypatch, capsys):

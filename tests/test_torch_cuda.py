@@ -650,6 +650,35 @@ def test_scalar_spectral_sweep_on_cuda_matches_cpu(cuda):
     assert r_gpu.fallbacks == 0 and np.max(r_gpu.residuals) < 1e-10
 
 
+@pytest.mark.parametrize("mode", ["per-k", "chain-mid", "batched",
+                                  "batched-setup"])
+def test_warm_chain_on_cuda_matches_cpu(cuda, mode):
+    """``run_warm_chain`` on the spectral Maxwell engine (FCC n=3 p=2,
+    Γ–X–W at 7 points with Γ nudged, chains of 3, 4 bands in 8, device
+    stop 1e-3 then the exact block refine) in each preconditioner mode:
+    refined bands equal on both devices (1e-9), iterations within ±2,
+    Jacobi once per iteration and once per k, no refine fallback."""
+    lat = make_lattice("FCC")
+    kc = kpath(lat, npts=7, path=[["G", "X", "W"]]).k_cart.copy()
+    kc[0] = 2e-2 * lat.B[0]
+    out = {}
+    for dev in ("cpu", cuda):
+        op = BlochCurlCurl(NedelecSpace.make(PeriodicGrid.make(lat, 3), 2),
+                           device=dev)
+        sweep = BandSweep(op, op.make_spectral_solve_fn(), nev=4, block=8,
+                          tol=1e-6, maxiter=200, device_tol=1e-3)
+        jacobi_cuda.launches = 0
+        out[str(dev)] = (sweep.run_warm_chain(kc, chain=3, precond=mode),
+                         jacobi_cuda.launches)
+        assert sweep.chain_mode == mode
+    (r_cpu, _), (r_gpu, launches) = out["cpu"], out[str(cuda)]
+    assert launches == int(r_gpu.iterations.sum()) + len(kc)
+    assert np.all(np.abs(r_gpu.iterations - r_cpu.iterations) <= 2)
+    np.testing.assert_allclose(r_gpu.eigenvalues, r_cpu.eigenvalues,
+                               rtol=1e-9, atol=1e-12)
+    assert r_gpu.fallbacks == 0 and np.max(r_gpu.residuals) < 1e-10
+
+
 def test_rods_gmg_sweep_on_cuda_matches_cpu(cuda):
     """Config 2 cut small (SQR ε = 8.9 rods n=8 p=2, npts=4, 4 bands in a
     block of 8, precond auto → GMG): refined bands equal on both devices,
