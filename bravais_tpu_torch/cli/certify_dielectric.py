@@ -171,8 +171,9 @@ def default_jobs(nsampled: int) -> int:
 def certify(args, jobs: int | None = None) -> dict:
     """The certification of ``args`` (``parser()``'s namespace):
     {"records": per-k JSON records, "summary": the summary record,
-    "f32": the production sweep's ``SweepResult``, "steps": its Chebyshev
-    steps, "oracle_steps"}. ``jobs``: oracle processes (default
+    "f32": the production sweep's ``SweepResult``, "oracle": {k index:
+    ``oracle_k``'s record}, "steps": its Chebyshev steps,
+    "oracle_steps"}. ``jobs``: oracle processes (default
     ``default_jobs``)."""
     import torch
 
@@ -238,7 +239,7 @@ def certify(args, jobs: int | None = None) -> dict:
         "f32_wall_s": round(t32, 1), "f64_wall_s": round(t64, 1),
     }
     return {"records": records, "summary": summary, "f32": r32,
-            "steps": sweep32.op.cheby_steps(),
+            "oracle": r64, "steps": sweep32.op.cheby_steps(),
             "oracle_steps": sweep32.op.cheby_steps(args.oracle_cheby_target),
             "f32_wall": t32, "f64_wall": t64}
 

@@ -316,8 +316,10 @@ int run(const void* u, const void* aw, const void* bw, void* y, void* m,
   cudaError_t err;
   // The repository's shapes: config 3 and QPLaplace at p = 3 (3, 4, 5),
   // the FCC field engine and config 5 at p = 4 (3, 5, 6), the 2D rods at
-  // p = 3 (2, 4, 5), the 2D scalar headline at p = 4 (2, 5, 6) and the 2D
-  // multigrid's p = 1 levels (2, 2, 3).
+  // p = 3 (2, 4, 5), the 2D scalar headline at p = 4 (2, 5, 6), the 2D
+  // multigrid's p = 1 levels (2, 2, 3), the 3D field engine at p = 2
+  // (3, 3, 4: the certification's CUB n = 4, FCC n = 3) and the 3D
+  // multigrid's p = 1 levels (3, 2, 3).
   if (d == 3 && l == 4 && q == 5)
     err = launch<3, 4, 5, KT>(uu, a, b, yy, mm, P, warps, s);
   else if (d == 3 && l == 5 && q == 6)
@@ -328,6 +330,10 @@ int run(const void* u, const void* aw, const void* bw, void* y, void* m,
     err = launch<2, 5, 6, KT>(uu, a, b, yy, mm, P, warps, s);
   else if (d == 2 && l == 2 && q == 3)
     err = launch<2, 2, 3, KT>(uu, a, b, yy, mm, P, warps, s);
+  else if (d == 3 && l == 3 && q == 4)
+    err = launch<3, 3, 4, KT>(uu, a, b, yy, mm, P, warps, s);
+  else if (d == 3 && l == 2 && q == 3)
+    err = launch<3, 2, 3, KT>(uu, a, b, yy, mm, P, warps, s);
   else if (d == 3)
     err = launch<3, 0, 0, KT>(uu, a, b, yy, mm, P, warps, s);
   else

@@ -89,20 +89,20 @@ def _whiten(G, eps):
     return V * inv[..., None, :].to(V.dtype), good
 
 
-def _chol_rows(G, big):
+def _chol_rows(G, big, whole: bool):
     """Cholesky factor of G (..., n, n) with failed rows rebuilt as huge
-    decoupled diagonals (``big`` (..., 1) per matrix); returns (L,
-    ok_rows).
-
-    ``torch.linalg.cholesky_ex`` reports the first failing leading minor
-    in ``info`` (rows info-1 onward are untrustworthy) where the
-    reference's JAX Cholesky NaN-poisons them; both end up as zero rows
-    with a ``big`` pivot, which zeroes those directions in L⁻¹."""
+    decoupled diagonals (``big`` (..., 1) per matrix), which zeroes those
+    directions in L⁻¹; returns (L, ok_rows). ``cholesky_ex``'s ``info``
+    names the first failed pivot: with ``whole`` every row of that
+    matrix fails, else the rows from that pivot on. Rows with non-finite
+    entries fail too."""
     L, info = torch.linalg.cholesky_ex(G)
-    n = G.shape[-1]
-    rows = torch.arange(n, device=G.device)
     info = info[..., None]
-    ok = ~((info > 0) & (rows >= info - 1))
+    if whole:
+        ok = info == 0
+    else:
+        rows = torch.arange(G.shape[-1], device=G.device)
+        ok = (info == 0) | (rows < info - 1)
     ok = ok & torch.isfinite(torch.view_as_real(L)).all(dim=-1).all(dim=-1)
     L = torch.where(ok[..., None], L, 0.0)
     L = L + torch.diag_embed((~ok).to(big.dtype) * big).to(G.dtype)
@@ -117,7 +117,20 @@ def _whiten_chol(G, eps):
     by the whitened M-norm diag(CᴴGC) = 1 − δ‖C[:, i]‖² < 1/2, then a
     second (CholeskyQR2) pass re-measures the whitened Gram from the
     ORIGINAL G so amplified noise directions drop out (see the reference
-    docstring for the measured failures each step prevents)."""
+    docstring for the measured failures each step prevents).
+
+    A failed pivot of the first factorization drops every direction, as
+    the reference's JAX Cholesky does (an all-NaN factor): G + δI is then
+    no Gram of the basis (the recombined MX/MP have drifted from M X,
+    M P), LOBPCG's whiteout guard freezes the block, and the next segment
+    refresh recomputes AX/MX/AP/MP. Keeping the rows above the pivot went
+    on iterating on the drifted state until its residuals read as
+    converged (config 3's degenerate k 1: 13 iterations, 1e-3 off). A
+    failed pivot of the second factorization, of G₂ ≈ I, is an amplified
+    noise direction, and only it and the rows after it drop, as the
+    reference's comment on that pass has it; dropping the whole block
+    there froze config 1's k 1 (SQR n=16 p=4) from its 2nd iteration to
+    its stagnation stop at 32, where the reference takes 4."""
     G = _hermitize(G)
     rdtype = G.real.dtype
     n = G.shape[-1]
@@ -127,7 +140,7 @@ def _whiten_chol(G, eps):
     delta = 20.0 * eps * dmax
     eye = torch.eye(n, dtype=G.dtype, device=G.device).expand(G.shape)
     big = dmax / fi.eps
-    L, fin = _chol_rows(G + delta[..., None] * eye, big)
+    L, fin = _chol_rows(G + delta[..., None] * eye, big, whole=True)
     Cm = torch.linalg.solve_triangular(L, eye, upper=False)   # L⁻¹
     mnorm = 1.0 - delta * (Cm.abs() ** 2).sum(dim=-1)
     good = (mnorm > 0.5) & fin
@@ -140,7 +153,7 @@ def _whiten_chol(G, eps):
     gm = good.to(rdtype)
     G2 = (G2 * (gm[..., :, None] * gm[..., None, :]).to(G2.dtype)
           + torch.diag_embed(1.0 - gm).to(G2.dtype))
-    L2, fin2 = _chol_rows(_hermitize(G2), big)
+    L2, fin2 = _chol_rows(_hermitize(G2), big, whole=False)
     good = good & fin2
     Cm2 = torch.linalg.solve_triangular(L2, eye, upper=False) @ Cm
     Cm2 = Cm2 * good[..., None].to(Cm2.dtype)

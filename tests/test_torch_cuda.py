@@ -248,8 +248,8 @@ def test_h1_kernel_matches_plain(cuda, lat, shape, p, kfrac):
     ("FCC", (2, 2, 2), 4, 0.3, 4), ("FCC", (3, 3, 3), 1, 0.3, 4)])
 def test_h1_kernel_shapes_match_plain(cuda, lat, shape, p, kfrac, rows):
     """Each instantiated (d, l, q) of the h1 kernel — config 3's at the
-    projector's 32 rows, the 2D p = 3 and p = 4 shapes and the FCC p = 4
-    field shape at k ≠ 0 — and the runtime-extent case (p = 1), every
+    projector's 32 rows, the 2D p = 3 and p = 4 shapes, the FCC p = 4
+    field shape at k ≠ 0 and the 3D p = 1 levels' (3, 2, 3) — every
     half."""
     lattice = make_lattice(lat)
     sp = H1Space.make(PeriodicGrid.make(lattice, shape), p)
@@ -268,6 +268,68 @@ def test_h1_kernel_shapes_match_plain(cuda, lat, shape, p, kfrac, rows):
             assert (a is None) == (b is None)
             if b is not None:
                 assert _rel(a, b) < 2e-5, want
+
+
+@pytest.mark.parametrize("shape,p,q,kfrac", [
+    ((4, 4, 4), 2, None, 0.0), ((4, 4, 4), 2, None, 0.3),
+    ((6, 6, 6), 1, None, 0.0), ((6, 6, 6), 1, None, 0.3),
+    ((3, 3, 3), 2, 5, 0.3)])
+def test_h1_kernel_3d_p2_p1_match_plain(cuda, shape, p, q, kfrac):
+    """The 3D (d, l, q) = (3, 3, 4) of the field engine at p = 2 (the
+    certification's CUB n = 4: its projector on 16 and 32 rows) and
+    (3, 2, 3) of the 3D multigrid's p = 1 levels (config 3's n = 6 on 16
+    rows), at k = 0 and k ≠ 0, every half, one launch a call; and a 3D
+    shape no case instantiates, (3, 3, 5), on the runtime-extent
+    template."""
+    lattice = make_lattice("CUB")
+    sp = H1Space.make(PeriodicGrid.make(lattice, shape), p, q)
+    xq = sp.qpoints_phys()
+    c = h1_apply.H1Consts.from_space(
+        sp, eval_coefficient(lambda x: 1 + 0.3 * x[..., 0] ** 2, xq),
+        eval_coefficient(lambda x: 1 + np.sum(x ** 2, axis=-1), xq), cuda)
+    k = [float(v) for v in lattice.k_cart([kfrac] * 3)]
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    for rows in ((16, 32) if p == 2 and q is None else (16,)):
+        ue = torch.randn((rows * c.nelem,) + (c.l,) * 3, generator=gen,
+                         dtype=torch.complex64, device=cuda)
+        for want in ("AM", "A", "M"):
+            before = h1_apply.launches
+            out = h1_apply.helmholtz_apply(ue, c, k, want)
+            assert h1_apply.launches == before + 1
+            ref = h1_apply.helmholtz_apply_plain(ue, c, k, want)
+            for a, b in zip(out, ref):
+                assert (a is None) == (b is None)
+                if b is not None:
+                    assert _rel(a, b) < 2e-5, (rows, want)
+
+
+@pytest.mark.parametrize("shape,p", [((4, 4, 4), 2), ((6, 6, 6), 1)])
+def test_h1_kernel_is_one_device_operation(cuda, shape, p):
+    """An h1 call at (3, 3, 4) and at (3, 2, 3) issues the kernel and
+    nothing else on the device, for every half. Now and then a process's
+    profiler trace holds no device operation at all, though the call
+    issues one: such a trace is taken again, at most three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    lattice = make_lattice("CUB")
+    sp = H1Space.make(PeriodicGrid.make(lattice, shape), p)
+    c = h1_apply.H1Consts.from_space(sp, np.ones(1), np.ones(1), cuda)
+    k = [float(v) for v in lattice.k_cart([0.3] * 3)]
+    ue = torch.randn((16 * c.nelem,) + (c.l,) * 3, dtype=torch.complex64,
+                     device=cuda)
+    for want in ("AM", "A", "M"):
+        h1_apply.helmholtz_apply(ue, c, k, want)
+        torch.cuda.synchronize()
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                h1_apply.helmholtz_apply(ue, c, k, want)
+                torch.cuda.synchronize()
+            dev = [e.name for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+            if dev:
+                break
+        assert len(dev) == 1 and "h1_apply_kernel" in dev[0], (want, dev)
 
 
 def _kfrac_table(nk, d, seed=6):
